@@ -1,0 +1,232 @@
+"""Online adaptation — serving gradients folded into the resident window
+(torch port of ``repro/serve/adapt.py``).
+
+After a request's solve, its per-sample score rows enter the n-sample
+window FIFO, the k oldest samples retiring per fold:
+
+    cols = S·rows†  (one O(n·m·k) pass — the only m-sized work; kernel)
+    X, Y, W' = replace_factors(W, cols, idx)          (2k×2k core split)
+    L' = chol_downdate(chol_update(L, X), Y)          (O(n²·k))
+    S'[idx] = rows
+
+A fold returns a new state and leaves the old one intact (the window is
+copied, not written in place), as the reference's pure fold does.
+
+Staleness is bounded like the training-side cache: ``maybe_refresh``
+(between microbatches) refactorizes when the factor's age reaches
+``refresh_every`` microbatches or the last monitored residual exceeds the
+drift threshold (static ``drift_tol``, else ``auto_drift_tol``).
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.core.damping import auto_drift_tol
+from repro_torch.core.operator import BlockedScores, acc_dtype, is_blocked
+from repro_torch.core.solvers import chol_factorize
+from repro_torch.curvature.update import (chol_downdate, chol_update,
+                                          replacement_core, signed_split)
+from repro_torch.kernels import ops as kernel_ops
+from repro_torch.serve.state import ServeState, serve_mode
+
+__all__ = ["OnlineAdaptation", "pad_to_window_cols"]
+
+
+def pad_to_window_cols(S, values, *, axis: int, cast: Optional[bool] = None):
+    """Zero-pad ``values`` (dense or per-block tuple) along ``axis`` up to
+    the window's column widths, and place them, contiguous, on the
+    window's device — the single point where incoming data meets the
+    window. Fold rows use axis=1 ((k, m)), stacked RHS axis=0 ((m, k)).
+
+    ``cast`` (default: ``axis == 1``, i.e. fold rows) also rounds the
+    values to each block's storage dtype — the one dtype-aware cast point,
+    so a bf16 window computes its fold columns from exactly the values
+    the FIFO write stores. RHS columns are not rounded."""
+    S_blocks = S.blocks if is_blocked(S) else (S,)
+    val_blocks = tuple(values) if isinstance(values, (tuple, list)) \
+        else (values,)
+    if cast is None:
+        cast = axis == 1
+
+    def pad(v, block):
+        v = torch.as_tensor(v)
+        if cast and v.dtype != block.dtype and block.dtype.is_floating_point \
+                and v.dtype.is_floating_point:
+            v = v.to(block.dtype)
+        v = v.to(block.device).contiguous()
+        width = block.shape[1]
+        if v.shape[axis] >= width:
+            return v
+        shape = list(v.shape)
+        shape[axis] = width - v.shape[axis]
+        return torch.cat([v, v.new_zeros(shape)], dim=axis)
+
+    padded = tuple(pad(v, b) for b, v in zip(S_blocks, val_blocks))
+    if isinstance(values, (tuple, list)):
+        return padded
+    return padded[0]
+
+
+def _fold_window(S, W, L, slot: int, rows, *, with_aux: bool = False):
+    """One FIFO fold: rows (k, m) dense or per-block pieces replace the k
+    oldest window samples. Returns (S', W', L', slot', aux) — ``aux`` the
+    downdate's ``DowndateAux`` when ``with_aux``, else None — or None when
+    the rows hold a NaN/Inf (the fold is rejected).
+
+    The fold makes one host read, as the reference's does: the rows'
+    finiteness flag travels with the 2k×2k replacement core, whose
+    eigendecomposition runs on the host."""
+    n = W.shape[0]
+    row_blocks = tuple(rows) if isinstance(rows, (tuple, list)) else (rows,)
+    k = row_blocks[0].shape[0]
+    idx = (torch.arange(k, device=W.device) + slot) % n
+    finite = torch.stack([torch.isfinite(b).all() for b in row_blocks]).all()
+
+    # new Gram columns W'[:, idx]: old rows via S·rows†, the replaced rows'
+    # own entries via the rows·rows† corner — one fused pass (kernel on CUDA)
+    cols, corner = kernel_ops.fold_cols(S, rows)
+    acc = acc_dtype(W.dtype)
+    cols = cols.to(acc)
+    cols[idx, :] = corner.to(acc)
+
+    U, core, Wp = replacement_core(W, cols, idx)
+    host = torch.cat([finite.to(core.dtype).reshape(1),
+                      core.reshape(-1)]).cpu()
+    if not bool(host[0]):
+        return None
+    X, Y = signed_split(U, host[1:].reshape(core.shape))
+    aux = None
+    if with_aux:
+        Lp, aux = chol_downdate(chol_update(L, X), Y, return_aux=True)
+    else:
+        Lp = chol_downdate(chol_update(L, X), Y)
+    S_blocks = S.blocks if is_blocked(S) else (S,)
+    new_blocks = []
+    for b, r in zip(S_blocks, row_blocks):
+        nb = b.clone()
+        nb[idx, :] = r.to(b.dtype)
+        new_blocks.append(nb)
+    Sp = BlockedScores(new_blocks, names=S.names) if is_blocked(S) \
+        else new_blocks[0]
+    return Sp, Wp, Lp, (slot + k) % n, aux
+
+
+class OnlineAdaptation:
+    """Bounded-staleness maintenance policy for the serving window.
+
+    ``track_margins``: compute each fold's downdate breakdown margin and
+    drain it at ``maybe_refresh`` into ``downdate_margin`` (worst margin of
+    the drained folds) and ``downdate_clamped`` (count of clamped
+    downdates) — the reference does this when a metrics registry is
+    attached; the registry comes with a later slice.
+    """
+
+    def __init__(self, *, refresh_every: int = 64,
+                 drift_tol: Optional[float] = None,
+                 drift_frac: Optional[float] = 0.25, jitter: float = 0.0,
+                 track_margins: bool = False):
+        if refresh_every < 1:
+            raise ValueError("refresh_every must be >= 1")
+        self.refresh_every = int(refresh_every)
+        self.drift_tol = None if drift_tol is None else float(drift_tol)
+        self.drift_frac = None if drift_frac is None else float(drift_frac)
+        self.jitter = float(jitter)
+        self.track_margins = bool(track_margins)
+        self.rejected_nonfinite = 0
+        self.downdate_margin: Optional[float] = None
+        self.downdate_clamped = 0
+        # (DowndateAux, CUDA event or None) of recent folds, drained at the
+        # next maybe_refresh; bounded so it cannot grow without limit
+        self._pending_aux: list = []
+
+    def effective_drift_tol(self, damping_state=None) -> Optional[float]:
+        if self.drift_tol is not None:
+            return self.drift_tol
+        if self.drift_frac is not None:
+            return float(auto_drift_tol(damping_state, frac=self.drift_frac))
+        return None
+
+    def fold(self, state: ServeState, rows, *, slots=None) -> ServeState:
+        """Fold one request's score rows into the window (FIFO replace).
+
+        ``rows``: (k, m) — or per-block (k, m_b) pieces for a blocked
+        window — with k ≤ n. ``slots``: optional FIFO slot indices of a
+        replayed fold, verified against the local cursor (raises on
+        divergence), so a replayer can only apply folds in order. Rows
+        holding a NaN/Inf are rejected: the state comes back unchanged and
+        ``rejected_nonfinite`` counts it."""
+        row_blocks = tuple(rows) if isinstance(rows, (tuple, list)) \
+            else (rows,)
+        k = int(row_blocks[0].shape[0])
+        n = int(state.W.shape[0])
+        if k > n:
+            raise ValueError(f"cannot fold {k} rows into an n={n} window")
+        if is_blocked(state.S) and len(row_blocks) != len(state.S.blocks):
+            raise ValueError(
+                f"{len(row_blocks)} row blocks for a "
+                f"{len(state.S.blocks)}-block window")
+        if slots is not None:
+            expect = tuple((state.slot + i) % n for i in range(k))
+            got = tuple(int(s) for s in slots)
+            if got != expect:
+                raise ValueError(
+                    f"fold replay out of order: event slots {got} vs local "
+                    f"FIFO cursor {expect} (apply events in journal order)")
+        rows_in = pad_to_window_cols(state.S, rows, axis=1)
+        out = _fold_window(state.S, state.W, state.L, state.slot, rows_in,
+                           with_aux=self.track_margins)
+        if out is None:
+            # one NaN/Inf row would poison W, L and the window at once
+            self.rejected_nonfinite += 1
+            return state
+        Sp, Wp, Lp, slot, aux = out
+        if aux is not None and len(self._pending_aux) < 1024:
+            event = None
+            if Lp.is_cuda:
+                event = torch.cuda.Event()
+                event.record()
+            self._pending_aux.append((aux, event))
+        stats = state.stats._replace(adapted=state.stats.adapted + k)
+        return state._replace(S=Sp, W=Wp, L=Lp, slot=slot, stats=stats)
+
+    def maybe_refresh(self, state: ServeState, *, damping_state=None,
+                      force: bool = False) -> Tuple[ServeState, bool]:
+        """Full W refactorization when the staleness bound is hit — called
+        between microbatches, never on the request path. Returns
+        (state', refreshed)."""
+        tol = self.effective_drift_tol(damping_state)
+        r = float(state.stats.last_residual)
+        age_due = state.age >= self.refresh_every
+        drift_due = tol is not None and r >= 0.0 and r > tol
+        refreshed = force or age_due or drift_due
+        if refreshed:
+            fac = chol_factorize(state.S, state.lam0, mode=serve_mode(state),
+                                 jitter=self.jitter)
+            stats = state.stats._replace(refreshes=state.stats.refreshes + 1,
+                                         last_residual=-1.0)
+            state = state._replace(W=fac.W, L=fac.L, age=0, stats=stats)
+        self._drain_margins()
+        return state, refreshed
+
+    def _drain_margins(self) -> None:
+        """Read the margins of folds whose device work already finished
+        (blocking would serialize the fold chain against the next
+        microbatch); a backlog past 64 drains in full."""
+        if not self.track_margins:
+            self._pending_aux.clear()
+            return
+        pending = self._pending_aux
+        split = len(pending)
+        if split <= 64:
+            for i, (_, event) in enumerate(pending):
+                if event is not None and not event.query():
+                    split = i
+                    break
+        done, self._pending_aux = pending[:split], pending[split:]
+        margins = [float(a.margin) for a, _ in done]
+        vals = [v for v in margins if v == v]          # NaN-proof min
+        if vals:
+            self.downdate_margin = min(vals)
+        self.downdate_clamped += sum(bool(a.clamped) for a, _ in done)

@@ -1,0 +1,259 @@
+"""``SolveServer`` — request-driven damped-Fisher solves against the
+resident factorization (torch port of ``repro/serve/server.py``).
+
+The request path costs two passes over S plus n-sized triangular work —
+never a Gram, never a refactorization:
+
+* uniform-λ microbatches at the resident λ₀ with drift monitoring off
+  take the fused route, ``kernels.ops.serve_solve`` (the CUDA kernel
+  chain on the card, the plain version on the CPU);
+* with monitoring on, or ``fused=False``, they run the compositional
+  ``CholFactorization.solve`` (with the relative residual when monitored);
+* mixed-λ microbatches go through ``solve_batch`` (per-column Cholesky of
+  the cached W, the two S passes still coalesced).
+
+``policy="refactorize"`` rebuilds the Gram every microbatch — the
+baseline the cached path is measured against. Between microbatches the
+server folds adaptation rows (``OnlineAdaptation``) and lets its
+staleness policy decide on a refresh; per-request wall-clock latencies
+land in ``ServerMetrics``.
+"""
+from __future__ import annotations
+
+import time
+from collections import deque
+from typing import Any, List, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.solvers import CholFactorization, chol_factorize
+from repro_torch.kernels import ops as kernel_ops
+from repro_torch.serve.adapt import OnlineAdaptation
+from repro_torch.serve.batcher import Microbatch, TokenBudgetBatcher
+from repro_torch.serve.state import ServeState, as_factorization, serve_mode
+
+__all__ = ["SolveResult", "ServerMetrics", "SolveServer"]
+
+
+class SolveResult(NamedTuple):
+    uid: int
+    x: Any                     # (m,) flat or tuple of per-block pieces
+    damping: float
+    latency_s: float
+
+
+def _to(V, device):
+    if isinstance(V, (tuple, list)):
+        return tuple(v.to(device) for v in V)
+    return V.to(device)
+
+
+def _wait(x) -> None:
+    """Block until the device has produced ``x``."""
+    t = x[0] if isinstance(x, (tuple, list)) else x
+    if t.is_cuda:
+        torch.cuda.current_stream(t.device).synchronize()
+
+
+def _coalesced_solve(S, W, L, lam0: float, V, lams, *, mode: str,
+                     jitter: float, uniform: bool, monitor: bool,
+                     refactorize: bool, fused: bool = True):
+    """One microbatch: x_j = (SᵀS + λ_j I)⁻¹ v_j. Returns (x, residual),
+    the relative residual a float when monitored, else None."""
+    device = S.device
+    V = _to(V, device)
+    if refactorize:
+        fac = chol_factorize(S, lam0, mode=mode, jitter=jitter)
+    else:
+        if fused and uniform and not monitor and mode == "real":
+            return kernel_ops.serve_solve(S, L, V, lam0), None
+        fac = CholFactorization(S=S, mode=mode, W=W, L=L, lam=lam0,
+                                jitter=jitter, take_real_v=False)
+    if uniform:
+        if monitor:
+            x, stats = fac.solve(V, return_stats=True)
+            return x, float(stats.residual_norm)
+        return fac.solve(V), None
+    # mixed per-request λ: drift monitoring needs a single λ — skip it
+    return fac.solve_batch(V, lams, jitter=jitter), None
+
+
+class ServerMetrics:
+    """Per-request wall-clock accounting over a ring of the ``window`` most
+    recent requests; totals keep counting past the ring."""
+
+    def __init__(self, *, window: int = 4096):
+        if window < 1:
+            raise ValueError("window must be >= 1")
+        self.window = int(window)
+        self.reset()
+
+    def reset(self) -> None:
+        self._ring: deque = deque(maxlen=self.window)
+        self._count = 0
+        self._tokens = 0
+        self._t0: Optional[float] = None
+        self._t1: Optional[float] = None
+
+    def record(self, t_submit: float, t_done: float, tokens: int) -> None:
+        self._ring.append((t_submit, t_done, tokens))
+        self._count += 1
+        self._tokens += tokens
+        self._t0 = t_submit if self._t0 is None else min(self._t0, t_submit)
+        self._t1 = t_done if self._t1 is None else max(self._t1, t_done)
+
+    @property
+    def served(self) -> int:
+        return self._count
+
+    def latencies_s(self) -> np.ndarray:
+        return np.asarray([d - s for s, d, _ in self._ring], np.float64)
+
+    def summary(self) -> dict:
+        """p50/p99 latency over the ring, requests/sec and tokens/sec over
+        the full recorded span (first submit → last completion)."""
+        if not self._count:
+            return {"served": 0, "p50_ms": None, "p99_ms": None,
+                    "rps": None, "tokens_per_s": None}
+        lat = self.latencies_s()
+        span = max(self._t1 - self._t0, 1e-12)
+        return {"served": self._count,
+                "p50_ms": float(np.percentile(lat, 50) * 1e3),
+                "p99_ms": float(np.percentile(lat, 99) * 1e3),
+                "rps": self._count / span,
+                "tokens_per_s": self._tokens / span}
+
+
+class SolveServer:
+    """The serving front end: submit → coalesce → solve → adapt.
+
+    Args:
+      state: resident ``ServeState`` (see ``init_serve_state``).
+      batcher: request coalescing policy (default token-budget FIFO).
+      adaptation: optional ``OnlineAdaptation`` — requests carrying score
+        rows then fine-tune the window after their solve.
+      policy: "cached" (resident factor) or "refactorize" (fresh Gram per
+        microbatch — the benchmark baseline).
+      monitor_drift: compute the relative residual on uniform-λ
+        microbatches (feeds the drift-refresh threshold).
+      jitter: extra diagonal, as elsewhere.
+      fused: route cached uniform-λ microbatches (monitoring off) through
+        ``kernels.ops.serve_solve``; False forces the compositional solve.
+    """
+
+    def __init__(self, state: ServeState, *,
+                 batcher: Optional[TokenBudgetBatcher] = None,
+                 adaptation: Optional[OnlineAdaptation] = None,
+                 policy: str = "cached", monitor_drift: bool = True,
+                 jitter: float = 0.0, fused: bool = True,
+                 clock=time.perf_counter, metrics_window: int = 4096):
+        if policy not in ("cached", "refactorize"):
+            raise ValueError(f"policy must be 'cached' or 'refactorize', "
+                             f"got {policy!r}")
+        self.state = state
+        self.batcher = batcher if batcher is not None else TokenBudgetBatcher()
+        self.adaptation = adaptation
+        self.policy = policy
+        self.monitor_drift = bool(monitor_drift)
+        self.jitter = float(jitter)
+        self.fused = bool(fused)
+        self.clock = clock
+        self.metrics = ServerMetrics(window=metrics_window)
+
+    def submit(self, v, *, damping: Optional[float] = None, tokens: int = 1,
+               rows=None, payload=None) -> int:
+        """Enqueue one request; returns its uid. ``damping=None`` means the
+        resident λ₀ (the fast path)."""
+        lam = self.state.lam0 if damping is None else float(damping)
+        req = self.batcher.submit(v, damping=lam, tokens=tokens, rows=rows,
+                                  payload=payload)
+        req.t_submit = self.clock()
+        return req.uid
+
+    def solve_one(self, v, *, damping: Optional[float] = None,
+                  tokens: int = 1, rows=None):
+        """Submit + flush a single request and return its x. Only valid on
+        an empty queue (a flush would also solve pending requests whose
+        results this method cannot hand back)."""
+        if len(self.batcher):
+            raise RuntimeError(
+                f"solve_one with {len(self.batcher)} request(s) pending "
+                "would drop their results; use submit() + flush()")
+        uid = self.submit(v, damping=damping, tokens=tokens, rows=rows)
+        (res,) = [r for r in self.flush() if r.uid == uid]
+        return res.x
+
+    def flush(self, *, damping_state=None) -> List[SolveResult]:
+        """Drain the batcher: solve every pending microbatch, fold each
+        request's adaptation rows, and let the staleness policy decide on
+        a refresh between microbatches. Returns results FIFO."""
+        out: List[SolveResult] = []
+        for mb in self.batcher.drain():
+            out.extend(self._serve(mb))
+            if self.adaptation is None:
+                continue
+            for req in mb.requests:
+                if req.rows is not None:
+                    self.state = self.adaptation.fold(self.state, req.rows)
+            self.state, _ = self.adaptation.maybe_refresh(
+                self.state, damping_state=damping_state)
+        return out
+
+    def _serve(self, mb: Microbatch) -> List[SolveResult]:
+        st = self.state
+        t_start = self.clock()
+        uniform = all(r.damping == st.lam0 for r in mb.requests)
+        x, resid = _coalesced_solve(
+            st.S, st.W, st.L, st.lam0, mb.V, mb.dampings,
+            mode=serve_mode(st), jitter=self.jitter, uniform=uniform,
+            monitor=self.monitor_drift and self.policy == "cached",
+            refactorize=self.policy == "refactorize", fused=self.fused)
+        _wait(x)
+        t_done = self.clock()
+
+        stats = st.stats._replace(
+            served=st.stats.served + mb.k,
+            microbatches=st.stats.microbatches + 1,
+            last_residual=st.stats.last_residual if resid is None else resid)
+        self.state = st._replace(age=st.age + 1, stats=stats)
+
+        results = []
+        for j, req in enumerate(mb.requests):
+            xj = tuple(xb[:, j] for xb in x) if isinstance(x, (tuple, list)) \
+                else x[:, j]
+            self.metrics.record(req.t_submit, t_done, req.tokens)
+            results.append(SolveResult(uid=req.uid, x=xj, damping=req.damping,
+                                       latency_s=t_done - req.t_submit))
+        return results
+
+    def apply_fold(self, rows, *, slots=None) -> None:
+        """Apply one fold to the resident window outside the request path
+        (the replay entry point); ``slots`` are verified against the local
+        FIFO cursor."""
+        if self.adaptation is None:
+            raise RuntimeError("apply_fold needs an OnlineAdaptation")
+        self.state = self.adaptation.fold(self.state, rows, slots=slots)
+
+    def refresh(self) -> None:
+        """Force a full refactorization now (not on the request path)."""
+        if self.adaptation is not None:
+            self.state, _ = self.adaptation.maybe_refresh(self.state,
+                                                          force=True)
+        else:
+            fac = chol_factorize(self.state.S, self.state.lam0,
+                                 mode=serve_mode(self.state),
+                                 jitter=self.jitter)
+            self.state = self.state._replace(
+                W=fac.W, L=fac.L, age=0,
+                stats=self.state.stats._replace(
+                    refreshes=self.state.stats.refreshes + 1))
+
+    @property
+    def factorization(self) -> CholFactorization:
+        """The resident factorization, as a first-class solver object."""
+        return as_factorization(self.state, jitter=self.jitter)
+
+    @property
+    def stats(self):
+        return self.state.stats

@@ -1,0 +1,35 @@
+"""The torch port stands alone: importing every module of ``repro_torch``
+(and ``chip_smoke.py`` as a module, without running it) loads neither
+``jax`` nor anything of the JAX package ``repro``."""
+import os
+import subprocess
+import sys
+import textwrap
+
+ROOT = os.path.join(os.path.dirname(__file__), "..")
+
+
+def test_port_imports_no_jax_and_no_repro():
+    body = textwrap.dedent("""
+        import importlib, importlib.util, pkgutil, sys
+        import repro_torch
+        names = ["repro_torch"] + [
+            m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                   "repro_torch.")]
+        for name in names:
+            importlib.import_module(name)
+        spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                      "chip_smoke.py")
+        spec.loader.exec_module(importlib.util.module_from_spec(spec))
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+        assert not bad, bad
+        assert "repro_torch.kernels.ops" in names
+        assert "repro_torch.serve.server" in names
+        print(len(names))
+    """)
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    r = subprocess.run([sys.executable, "-c", body], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, f"STDOUT:\n{r.stdout}\nSTDERR:\n{r.stderr}"
+    assert int(r.stdout.strip().splitlines()[-1]) >= 17
