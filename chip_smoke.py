@@ -7,15 +7,27 @@ Phases, each printing its own lines:
 1. device — name and power limit (``nvidia-smi``); no CUDA → exit 1;
 2. build  — compile the hand-written CUDA kernels from ``csrc/``;
 3. kernel checks — every kernel against its plain PyTorch version on the
-   card over a shape sweep up to (2048, 200_000), fp32 and bf16 windows,
-   k ∈ {1, 5, 8, 16}; a second call must be bit-identical;
-4. main path, dense — ``SolveServer`` at the paper's Table-1 shape
+   card over a shape sweep up to (2048, 200_000), fp32 and bf16 windows
+   (serve kernels at k ∈ {1, 5, 8, 16}; the Cholesky at n ∈ {16, 100,
+   130, 256, 1024, 2048} on SPD W); a second call must be bit-identical;
+4. serving path, dense — ``SolveServer`` at the paper's Table-1 shape
    (n = 1024 samples, m = 100_000 parameters, λ₀ = 1e-3): 64 requests
    with fold rows, one mixed-λ microbatch, age refreshes; the same trace
    through the port on the CPU (plain versions throughout) is the
    reference;
-5. main path, blocked — the same window in four blocks, same trace;
-6. per-kernel launches, times, plain and library times, and bounds.
+5. serving path, blocked — the same window in four blocks, same trace;
+6. Algorithm 1 — ``chol_solve_fused`` at the Table-1 shapes (256, 1024
+   and 2048 samples × 100_000 parameters, λ = 1e-3), dense and (at 1024)
+   blocked, with ``chol_solve(gram_fn=ops.gram)`` and ``ops.gram_blocks``,
+   each against ``chol_solve`` on the card with plain versions;
+7. NGD trainer — 5 steps of ``NaturalGradient`` with the fused solver on
+   the MLP of ``examples/ngd_mlp_train.py --big`` (m = 296,448, n = 256),
+   each step's kernels against their plain versions on its inputs, and
+   its update held to the float64 step of its own S and g at the plain
+   ``"chol"`` step's distance plus 1e-3 (the same step on the CPU is
+   printed beside it);
+8. profiles of one dense flush, one (1024, 100_000) solve and one NGD
+   step; per-kernel launches, times, plain and library times, bounds.
 
 Any failed check raises, so the script exits non-zero. The last line is
 ``{"ok": true, "device": {...}}``.
@@ -34,8 +46,13 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-from repro_torch.core import BlockedScores  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro_torch.core import (BlockedScores, chol_factorize,  # noqa: E402
+                              chol_solve)
 from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.optim import (NaturalGradient,  # noqa: E402
+                               params_from_arrays, per_sample_score_blocks)
 from repro_torch.serve import (OnlineAdaptation, SolveServer,  # noqa: E402
                                TokenBudgetBatcher, init_serve_state)
 
@@ -46,12 +63,24 @@ SWEEP_SHAPES = [(8, 128), (32, 300), (100, 1000), (130, 515), (N, M),
 SWEEP_K = (1, 5, 8, 16)
 REQUESTS, PER_MB, ROWS_PER_REQ, MIXED_MB = 64, 8, 2, 3
 SEED = 0
+TABLE1 = [(256, M), (1024, M), (2048, M)]   # configs/paper.py Table-1 rows
+CHOL_N = (16, 100, 130, 256, 1024, 2048)
+# examples/ngd_mlp_train.py --big: d_in 64, width 512, n = 256 samples
+MLP_D_IN, MLP_WIDTH, MLP_N, NGD_STEPS = 64, 512, 256, 5
 
 # Reduction order over m ≤ 2·10⁵ differs from cuBLAS's: 1e-4 relative for
 # the one-reduction passes; the solve adds two triangular solves whose
 # error grows with n, so 1e-3 at n = 2048.
 PASS_TOL = 1e-4
 SERVE_GATE = 5e-3                      # benchmarks/serve.py's bound
+SOLVE_GATE = 1e-3       # tests/test_kernels.py:103-108 (rtol of the fused solve)
+# An NGD update, tests/test_optim.py's 1e-3. At λ = 1e-3 every fp32 route
+# of Algorithm 1 on this model is itself up to ~2e-3 from the float64 step
+# of its inputs (x = (v − Sᵀw)/λ cancels about four digits; PERF.md §6),
+# so no fp32 update can be held within 1e-3 of another. On the step's own
+# S and g the kernel path is held to the float64 step at the plain path's
+# distance plus 1e-3; the CPU step is printed beside it.
+STEP_GATE = 1e-3
 
 KERNELS = {
     # name: (source, TPU kernel it replaces)
@@ -65,12 +94,28 @@ KERNELS = {
                  "src/repro/kernels/serve_solve.py:46"),
     "fold_cols": ("src/repro_torch/kernels/csrc/fold.cu",
                   "src/repro/kernels/fold.py:54"),
+    "gram": ("src/repro_torch/kernels/csrc/gram.cu",
+             "src/repro/kernels/gram.py:48"),
+    "gram_acc": ("src/repro_torch/kernels/csrc/gram.cu",
+                 "src/repro/kernels/gram.py:93"),
+    "gram_sv": ("src/repro_torch/kernels/csrc/gram.cu",
+                "src/repro/kernels/gram_sv.py:56"),
+    "cholesky": ("src/repro_torch/kernels/csrc/cholesky.cu",
+                 "src/repro/kernels/cholesky.py:76"),
+    "ngd_apply": ("src/repro_torch/kernels/csrc/ngd_apply.cu",
+                  "src/repro/kernels/ngd_apply.py:41"),
 }
 
 
 def rel(a, b) -> float:
     a, b = a.double(), b.double()
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def rel2(a, b) -> float:
+    """‖a − b‖₂ / ‖b‖₂ in float64."""
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm().clamp_min(1e-300))
 
 
 def phase(title: str) -> None:
@@ -89,10 +134,12 @@ def device_line() -> str:
     return out.splitlines()[0]
 
 
-def peaks(name: str) -> tuple[float, float]:
-    """(bytes/s, fp32 FLOP/s) from NVIDIA's data sheets: H100 SXM
-    3.35 TB/s and 67 TFLOP/s; the PCIe part 2.0 TB/s and 51 TFLOP/s."""
-    return (2.0e12, 51e12) if "PCIe" in name else (3.35e12, 67e12)
+def peaks(name: str) -> tuple[float, float, float]:
+    """(bytes/s, fp32 FLOP/s, dense bf16 tensor FLOP/s) from NVIDIA's data
+    sheets: H100 SXM 3.35 TB/s, 67 and 989 TFLOP/s; the PCIe part
+    2.0 TB/s, 51 and 756 TFLOP/s."""
+    return (2.0e12, 51e12, 756e12) if "PCIe" in name \
+        else (3.35e12, 67e12, 989e12)
 
 
 def build() -> None:
@@ -267,9 +314,37 @@ def main_path(trace, blocked: bool) -> dict:
             "summary": summary}
 
 
+def profile(label: str, fn, prepare=None) -> None:
+    """Run ``fn`` twice (after ``prepare``, outside the window): a warm-up,
+    then once under torch.profiler. Prints the wall time, the device-busy
+    share and the device time by kernel."""
+    act = [torch.profiler.ProfilerActivity.CPU,
+           torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(2):
+        if prepare is not None:
+            prepare()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=act) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    busy = {e.key: e.self_device_time_total / 1e3 for e in events}
+    if not busy:
+        print(f"  {label}: {wall:.3f} ms wall; device time not measured "
+              "(the profiler returned no device events)")
+        return
+    total = sum(busy.values())
+    print(f"  {label}: {wall:.3f} ms wall, device busy {total:.3f} ms "
+          f"({100 * total / wall:.1f} %)")
+    for key, ms in sorted(busy.items(), key=lambda kv: -kv[1])[:10]:
+        print(f"    {ms:8.3f} ms  {key[:90]}")
+
+
 def profile_flush(trace) -> None:
-    """One dense microbatch (8 requests with fold rows) under
-    torch.profiler: wall time, device-busy share, device time by kernel."""
+    """One dense microbatch (8 requests with fold rows)."""
     S, vs, rows, lams = trace
     Sd = S.cuda()
     vs = [v.cuda() for v in vs[:PER_MB]]
@@ -278,33 +353,304 @@ def profile_flush(trace) -> None:
                       batcher=TokenBudgetBatcher(max_requests=PER_MB),
                       adaptation=OnlineAdaptation(refresh_every=10 ** 6),
                       monitor_drift=False)
-    for _ in range(2):                       # warm-up, then the profiled one
+
+    def submit():
         for v, r in zip(vs, rows):
             srv.submit(v, rows=r)
-        torch.cuda.synchronize()
-        act = [torch.profiler.ProfilerActivity.CPU,
-               torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=act) as prof:
-            t0 = time.perf_counter()
-            srv.flush()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.key_averages()
-              if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
-    busy = {e.key: e.self_device_time_total / 1e3 for e in events}
-    if not busy:
-        print(f"  flush {wall:.3f} ms wall; device time not measured "
-              "(the profiler returned no device events)")
-        return
-    total = sum(busy.values())
-    print(f"  flush of {PER_MB} requests + {PER_MB} folds: {wall:.3f} ms wall, "
-          f"device busy {total:.3f} ms ({100 * total / wall:.1f} %)")
-    for key, ms in sorted(busy.items(), key=lambda kv: -kv[1])[:10]:
-        print(f"    {ms:8.3f} ms  {key[:90]}")
+
+    profile(f"flush of {PER_MB} requests + {PER_MB} folds", srv.flush, submit)
 
 
 # ---------------------------------------------------------------------------
-# 6. times and bounds at the main-path shape
+# 3b. Algorithm-1 kernel checks
+# ---------------------------------------------------------------------------
+
+def algorithm1_cases(S, v, w, B):
+    """name → fn(mode) for the Algorithm-1 kernels on a window S, a v and a
+    w; ``B`` is S in two blocks, so ``gram_acc`` runs after ``gram``."""
+    def gram_sv(mode):
+        # the kernel rounds v to the window's dtype: give the plain version
+        # that rounded v (the CPU route of the reference does not round)
+        W, u = ops.gram_sv(S, v if mode == "kernel" else v.to(S.dtype),
+                           mode=mode)
+        return torch.cat([W.reshape(-1), u])
+    return {
+        "gram": lambda mode: ops.gram(S, mode=mode),
+        "gram_acc": lambda mode: ops.gram_blocks(B, mode=mode),
+        "gram_sv": gram_sv,
+        "ngd_apply": lambda mode: ops.ngd_apply(S, w, v.to(S.dtype), LAM0,
+                                                mode=mode),
+    }
+
+
+def check_case(label, fn, tol) -> tuple[float, float]:
+    """Kernel twice (bit-identical), plain once; returns the relative and
+    the absolute error."""
+    got, again = fn("kernel"), fn("kernel")
+    plain = fn("ref")
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f"{label}: repeat call not bit-identical")
+    err = rel(got, plain)
+    if not err < tol:
+        raise AssertionError(f"{label}: rel err {err:.3e} >= {tol:g}")
+    return err, float((got.double() - plain.double()).abs().max())
+
+
+def spd(n, gen):
+    A = torch.randn((n, n), generator=gen, device="cuda")
+    return A @ A.T / n + torch.eye(n, device="cuda")
+
+
+def algorithm1_checks() -> dict:
+    """Sweep; returns {kernel: abs error at the main shape, fp32}."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    main_err = {}
+    for n, m in SWEEP_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            S = (torch.randn((n, m), generator=gen, device="cuda")
+                 / m ** 0.5).to(dtype)
+            v = torch.randn((m,), generator=gen, device="cuda")
+            w = torch.randn((n,), generator=gen, device="cuda")
+            B = BlockedScores.from_dense(S, (m // 2, m - m // 2))
+            worst = {}
+            for name, fn in algorithm1_cases(S, v, w, B).items():
+                err, abs_err = check_case(f"{name} {n}x{m} {dtype}", fn,
+                                          PASS_TOL)
+                worst[name] = err
+                if (n, m, dtype) == (N, M, torch.float32):
+                    main_err[name] = abs_err
+            print(f"  {n}x{m} {str(dtype)[6:]}: rel err "
+                  + " ".join(f"{k}={e:.2e}" for k, e in worst.items()),
+                  flush=True)
+    errs, times = [], []
+    for n in CHOL_N:
+        W = spd(n, gen)
+        fn = lambda mode: ops.cholesky(W, mode=mode)  # noqa: E731
+        err, abs_err = check_case(f"cholesky n={n}", fn, PASS_TOL)
+        errs.append(f"{n}: {err:.2e}")
+        if n == N:
+            main_err["cholesky"] = abs_err
+        if n >= N:      # the Table-1 sizes of path A: kernel / plain ms
+            times.append(f"{n}: {time_ms(lambda: fn('kernel')):.4f} / "
+                         f"{time_ms(lambda: fn('ref')):.4f} ms")
+    print("  cholesky (SPD W) rel err " + ", ".join(errs) + "; kernel / "
+          "plain " + ", ".join(times), flush=True)
+    return main_err
+
+
+# ---------------------------------------------------------------------------
+# 6. Algorithm 1 at the Table-1 shapes
+# ---------------------------------------------------------------------------
+
+def wall_ms(fn, reps: int = 3) -> float:
+    """Best host wall time of ``fn`` over ``reps`` runs, each ended by a
+    device sync."""
+    best = float("inf")
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        best = min(best, (time.perf_counter() - t0) * 1e3)
+    return best
+
+
+def residual64(S, v, x, lam) -> float:
+    """‖(SᵀS + λI)x − v‖ / ‖v‖ in float64, on the card."""
+    S64, x64, v64 = S.double(), x.double(), v.double()
+    r = S64.T @ (S64 @ x64) + lam * x64 - v64
+    return float(r.norm() / v64.norm())
+
+
+def solve_inputs(n, m, gen):
+    S = torch.randn((n, m), generator=gen, device="cuda") / m ** 0.5
+    return S, torch.randn((m,), generator=gen, device="cuda")
+
+
+def algorithm1_path() -> dict:
+    """``chol_solve_fused`` (and the gram / gram_acc routes) at every
+    Table-1 shape, each against the plain ``chol_solve`` on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    inputs = [(n, m, *solve_inputs(n, m, gen)) for n, m in TABLE1]
+    ops.reset_launch_counts()
+    for n, m, S, v in inputs:
+        cases = {"fused": lambda: ops.chol_solve_fused(S, v, LAM0),
+                 "gram_fn": lambda: chol_solve(S, v, LAM0, gram_fn=ops.gram)}
+        if n == N:
+            B = BlockedScores.from_dense(S, WIDTHS)
+            cases["fused blocked"] = lambda: ops.chol_solve_fused(B, v, LAM0)
+            cases["gram_blocks"] = lambda: chol_factorize(
+                B, LAM0, W=ops.gram_blocks(B)).solve(v)
+        oracle = chol_solve(S, v, LAM0)
+        plain_ms = wall_ms(lambda: chol_solve(S, v, LAM0))
+        for kind, fn in cases.items():
+            x = fn()
+            ms = wall_ms(fn)
+            if x.shape != (m,) or not torch.isfinite(x).all():
+                raise AssertionError(f"{kind} {n}x{m}: not a finite (m,)")
+            err = rel(x, oracle)
+            print(f"  {n}x{m} {kind}: {ms:.3f} ms per solve (plain "
+                  f"chol_solve {plain_ms:.3f} ms), rel err vs plain "
+                  f"{err:.2e} (gate {SOLVE_GATE:g}), float64 residual "
+                  f"{residual64(S, v, x, LAM0):.2e}", flush=True)
+            if not err < SOLVE_GATE:
+                raise AssertionError(f"{kind} {n}x{m}: {err:.3e} from the "
+                                     "plain chol_solve")
+    torch.cuda.synchronize()
+    return ops.launch_counts()
+
+
+# ---------------------------------------------------------------------------
+# 7. the NGD trainer: examples/ngd_mlp_train.py --big
+# ---------------------------------------------------------------------------
+
+def mlp_problem():
+    """Weights and data of ``examples/ngd_mlp_train.py --big``, drawn from
+    numpy ``default_rng(0)`` in the same order."""
+    rng = np.random.default_rng(0)
+    d, h, n = MLP_D_IN, MLP_WIDTH, MLP_N
+    arrays = {
+        "w1": (rng.normal(size=(d, h)) / d ** 0.5).astype(np.float32),
+        "b1": np.zeros((h,), np.float32),
+        "w2": (rng.normal(size=(h, h)) / h ** 0.5).astype(np.float32),
+        "b2": np.zeros((h,), np.float32),
+        "w3": (rng.normal(size=(h, 1)) / h ** 0.5).astype(np.float32),
+    }
+    X = rng.normal(size=(n, d)).astype(np.float32)
+    y = (np.sin(3 * X[:, :1]).sum(-1) + 0.5 * np.cos(X[:, 1])).astype(np.float32)
+    return arrays, X, y
+
+
+def predict(p, x):
+    h = torch.tanh(x @ p["w1"] + p["b1"])
+    h = torch.tanh(h @ p["w2"] + p["b2"])
+    return (h @ p["w3"])[..., 0]
+
+
+def sample_residual(p, ex):
+    """Per-sample residual r_i: its Jacobian rows are the score rows, so
+    the solve is the damped Gauss-Newton (Levenberg-Marquardt) step."""
+    x, y = ex
+    return predict(p, x[None])[0] - y
+
+
+def mse(p, X, y):
+    return torch.mean((predict(p, X) - y) ** 2)
+
+
+def ngd_step(opt, state, p, X, y):
+    S = per_sample_score_blocks(sample_residual, p, (X, y))
+    g = torch.func.grad(lambda q: 0.5 * mse(q, X, y))(p)   # Jᵀr/n
+    upd, state = opt.update(g, state, p, scores=S)
+    return upd, state, S, g
+
+
+def flat(tree) -> torch.Tensor:
+    return torch.cat([tree[k].reshape(-1) for k in sorted(tree)])
+
+
+def exact_update(S, g, lam) -> torch.Tensor:
+    """−x of the step's system in float64 on the card (lr 1, no momentum):
+    x = (v − Sᵀ(SSᵀ + λI)⁻¹Sv)/λ."""
+    S64 = S.to_dense().cuda().double()
+    v64 = flat(g).cuda().double()
+    W = S64 @ S64.T + lam * torch.eye(S64.shape[0], dtype=torch.float64,
+                                      device="cuda")
+    return -(v64 - S64.T @ torch.linalg.solve(W, S64 @ v64)) / lam
+
+
+def new_ngd(solver=ops.chol_solve_fused):
+    return NaturalGradient(1.0, damping=LAM0, momentum=0.0, solver=solver)
+
+
+def step_kernel_checks(S, g) -> None:
+    """The step's kernels against their plain versions on its own inputs,
+    where the composition's fp32 sensitivity does not enter: ``gram_sv``
+    per score block, and the Cholesky of the damped Gram by its residual
+    ‖LLᵀ − W‖/‖W‖ (its factor is as ill-conditioned as W)."""
+    v_blocks = [g[k].reshape(-1) for k in sorted(g)]
+    errs = []
+    for b, vb in zip(S.blocks, v_blocks):
+        errs.append(check_case(f"gram_sv {tuple(b.shape)}", lambda mode: torch.cat(
+            [t.reshape(-1) for t in ops.gram_sv(b, vb, mode=mode)]), PASS_TOL)[0])
+    W = ops.gram_blocks(S, mode="ref")
+    W.diagonal().add_(LAM0)
+    L = ops.cholesky(W, mode="kernel")
+    chol_res = rel(L @ L.T, W)
+    print(f"  step inputs: gram_sv vs plain per block "
+          + " ".join(f"{e:.2e}" for e in errs) + f"; cholesky ‖LLᵀ − W‖ "
+          f"{chol_res:.2e}, L vs plain {rel(L, ops.cholesky(W, mode='ref')):.2e}",
+          flush=True)
+    if not chol_res < PASS_TOL:
+        raise AssertionError(f"cholesky on the step's Gram: {chol_res:.3e}")
+
+
+def trainer_path() -> tuple[dict, tuple]:
+    """NGD_STEPS steps on the card. Each step is held, on its own S and g,
+    against the float64 step at the plain path's distance plus STEP_GATE;
+    the same step from the same parameters on the CPU (plain versions) is
+    printed beside it. Returns (launch counts, profiling inputs)."""
+    arrays, X, y = mlp_problem()
+    p = params_from_arrays(arrays)
+    m = sum(t.numel() for t in p.values())
+    Xd, yd = torch.from_numpy(X).cuda(), torch.from_numpy(y).cuda()
+    Xc, yc = torch.from_numpy(X), torch.from_numpy(y)
+    opt, plain_opt = new_ngd(), new_ngd("chol")
+    st = opt.init(p)
+    print(f"  MLP d_in {MLP_D_IN}, width {MLP_WIDTH}: m = {m:,} parameters, "
+          f"n = {MLP_N} samples, λ = {LAM0:g}", flush=True)
+    ngd_step(opt, st, p, Xd, yd)                  # warm-up, not applied
+    counts = dict.fromkeys(ops.launch_counts(), 0)
+    gpu_loss, cpu_loss = [float(mse(p, Xd, yd))], [float(mse(p, Xd, yd))]
+    for k in range(NGD_STEPS):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()     # the step's launches, not the checks'
+        t0 = time.perf_counter()
+        upd, st_next, S, g = ngd_step(opt, st, p, Xd, yd)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+        for key, n_launch in ops.launch_counts().items():
+            counts[key] += n_launch
+        u_g = flat(upd)
+        if u_g.shape != (m,) or not torch.isfinite(u_g).all():
+            raise AssertionError(f"step {k}: update not a finite ({m},)")
+        if k == 0:
+            step_kernel_checks(S, g)
+        u_p = flat(plain_opt.update(g, plain_opt.init(p), p, scores=S)[0])
+        u64 = exact_update(S, g, LAM0)
+        e_gp, e_g, e_p = rel(u_g, u_p), rel(u_g, u64), rel(u_p, u64)
+        pc = {key: t.cpu() for key, t in p.items()}
+        cpu_opt = new_ngd()
+        upd_c, _, Sc, gc = ngd_step(cpu_opt, cpu_opt.init(pc), pc, Xc, yc)
+        u_c = flat(upd_c)
+        e_gc = rel(u_g.cpu(), u_c)
+        e_c = rel(u_c, exact_update(Sc, gc, LAM0).cpu())
+        p = {key: p[key] + upd[key] for key in p}
+        st = st_next
+        gpu_loss.append(float(mse(p, Xd, yd)))
+        cpu_loss.append(float(mse({key: pc[key] + upd_c[key] for key in pc},
+                                  Xc, yc)))
+        print(f"  step {k}: {step_ms:.2f} ms on the card; update (max-abs "
+              f"rel) vs the float64 step of its S and g: kernels {e_g:.2e}, "
+              f"plain {e_p:.2e} (gate: kernels ≤ plain + {STEP_GATE:g}); "
+              f"kernels vs plain {e_gp:.2e}; vs the CPU step {e_gc:.2e} "
+              f"(the CPU's own distance to its float64 step {e_c:.2e})",
+              flush=True)
+        if not e_g <= e_p + STEP_GATE:
+            raise AssertionError(f"step {k}: the kernel path is {e_g:.3e} "
+                                 f"from the float64 step, the plain path "
+                                 f"{e_p:.3e}")
+    print("  loss, card: " + " ".join(f"{x:.4e}" for x in gpu_loss))
+    print("  loss, CPU (each step from the card's parameters): "
+          + " ".join(f"{x:.4e}" for x in cpu_loss))
+    if not gpu_loss[-1] < 1e-2 * gpu_loss[0]:
+        raise AssertionError("the NGD steps did not reduce the loss")
+    return counts, (opt, st, p, Xd, yd)
+
+
+# ---------------------------------------------------------------------------
+# 8. times and bounds at the main-path shape
 # ---------------------------------------------------------------------------
 
 def time_ms(fn, iters: int = 20) -> float:
@@ -321,25 +667,56 @@ def time_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(name, n, m, k, es, bw, flops) -> tuple[float, str]:
+def bound(name, n, m, k, es, bw, flops, window_flops) -> tuple[float, str]:
     """Least time for the function: each input read once and each output
-    written once, against fp32 operations at peak; the larger wins."""
+    written once, against the operations at peak — fp32, or the window
+    dtype's tensor rate for the Gram's products of window rows (the Gram
+    counts the lower triangle, the Cholesky n³/3); the larger wins."""
     f4 = 4
     win = n * m * es
-    nbytes, nops = {
-        "sv_cross": (win + m * k * f4 + n * k * f4, 2 * n * m * k),
-        "serve_apply": (win + n * k * f4 + 2 * m * k * f4, 2 * n * m * k),
-        "trisolve": (n * n * f4 + 2 * n * k * f4, 2 * n * n * k),
+    tri = n * (n + 1) * m                     # 2 flop × n(n+1)/2 × m
+    nbytes, nops, peak = {
+        "sv_cross": (win + m * k * f4 + n * k * f4, 2 * n * m * k, flops),
+        "serve_apply": (win + n * k * f4 + 2 * m * k * f4, 2 * n * m * k,
+                        flops),
+        "trisolve": (n * n * f4 + 2 * n * k * f4, 2 * n * n * k, flops),
         "serve_solve": (win + n * n * f4 + 2 * m * k * f4,
-                        4 * n * m * k + 2 * n * n * k),
+                        4 * n * m * k + 2 * n * n * k, flops),
         "fold_cols": (win + k * m * es + (n + k) * k * f4,
-                      2 * (n + k) * m * k),
+                      2 * (n + k) * m * k, flops),
+        "gram": (win + n * n * f4, tri, window_flops),
+        "gram_acc": (win + 2 * n * n * f4, tri, window_flops),
+        "gram_sv": (win + m * es + n * n * f4 + n * f4, tri + 2 * n * m,
+                    window_flops),
+        "cholesky": (2 * n * n * f4, n ** 3 / 3, flops),
+        "ngd_apply": (win + n * f4 + m * es + m * f4, 2 * n * m, flops),
     }[name]
-    t_b, t_o = nbytes / bw * 1e3, nops / flops * 1e3
+    t_b, t_o = nbytes / bw * 1e3, nops / peak * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
+def time_cases(cases: dict, library: dict, bound_of, label: str) -> dict:
+    """Plain, kernel, kernel, plain (in turns, one call), then the library
+    call; returns the JSON fields of each kernel."""
+    out = {}
+    for name, fn in cases.items():
+        p1 = time_ms(lambda: fn("ref"))
+        k1 = time_ms(lambda: fn("kernel"))
+        k2 = time_ms(lambda: fn("kernel"))
+        p2 = time_ms(lambda: fn("ref"))
+        lib = time_ms(library[name]) if name in library else None
+        b, by = bound_of(name)
+        out[name] = {"ms": min(k1, k2), "plain_ms": min(p1, p2),
+                     "library_ms": lib, "bound_ms": b, "bound_by": by}
+        print(f"  {label} {name}: kernel {k1:.4f}/{k2:.4f} ms, "
+              f"plain {p1:.4f}/{p2:.4f} ms, library "
+              f"{'n/a' if lib is None else f'{lib:.4f} ms'}, bound {b:.4f} ms "
+              f"({by})", flush=True)
+    return out
+
+
 def timings(dtype, k: int, bw: float, flops: float) -> dict:
+    """The serve kernels at (N, M), k right-hand sides."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     S, L = window(N, M, dtype, gen)
     V = torch.randn((M, k), generator=gen, device="cuda")
@@ -355,22 +732,43 @@ def timings(dtype, k: int, bw: float, flops: float) -> dict:
             "fold_cols": lambda: torch.matmul(S, rows.T),
         }
     es = S.element_size()
-    out = {}
-    for name, fn in kernel_cases(S, L, V, w, rows, LAM0).items():
-        # plain, kernel, kernel, plain: compare within one call, in turns
-        p1 = time_ms(lambda: fn("ref"))
-        k1 = time_ms(lambda: fn("kernel"))
-        k2 = time_ms(lambda: fn("kernel"))
-        p2 = time_ms(lambda: fn("ref"))
-        lib = time_ms(library[name]) if name in library else None
-        b, by = bound(name, N, M, k, es, bw, flops)
-        out[name] = {"ms": min(k1, k2), "plain_ms": min(p1, p2),
-                     "library_ms": lib, "bound_ms": b, "bound_by": by}
-        print(f"  {str(dtype)[6:]} k={k} {name}: kernel {k1:.4f}/{k2:.4f} ms, "
-              f"plain {p1:.4f}/{p2:.4f} ms, library "
-              f"{'n/a' if lib is None else f'{lib:.4f} ms'}, bound {b:.4f} ms "
-              f"({by})", flush=True)
-    return out
+    return time_cases(
+        kernel_cases(S, L, V, w, rows, LAM0), library,
+        lambda name: bound(name, N, M, k, es, bw, flops, flops),
+        f"{str(dtype)[6:]} k={k}")
+
+
+def algorithm1_timings(dtype, bw: float, flops: float,
+                       window_flops: float) -> dict:
+    """The Algorithm-1 kernels at (N, M), one right-hand side."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    S = (torch.randn((N, M), generator=gen, device="cuda") / M ** 0.5).to(dtype)
+    v = torch.randn((M,), generator=gen, device="cuda")
+    w = torch.randn((N,), generator=gen, device="cuda")
+    W = spd(N, gen)
+    acc = torch.zeros((N, N), device="cuda")   # gram_acc accumulates in place
+    vs = v.to(dtype)
+    cases = {
+        "gram": lambda mode: ops.gram(S, mode=mode),
+        "gram_acc": lambda mode: ops.gram_acc(S, acc, mode=mode),
+        "gram_sv": lambda mode: ops.gram_sv(S, vs, mode=mode),
+        "cholesky": lambda mode: ops.cholesky(W, mode=mode),
+        "ngd_apply": lambda mode: ops.ngd_apply(S, w, vs, LAM0, mode=mode),
+    }
+    library = {}
+    if dtype == torch.float32:
+        library = {
+            "gram": lambda: torch.matmul(S, S.T),
+            "gram_acc": lambda: torch.addmm(acc, S, S.T),
+            "cholesky": lambda: torch.linalg.cholesky(W),
+            "ngd_apply": lambda: torch.addmv(v, S.T, w, beta=1 / LAM0,
+                                             alpha=-1 / LAM0),
+        }
+    es = S.element_size()
+    return time_cases(
+        cases, library,
+        lambda name: bound(name, N, M, 1, es, bw, flops, window_flops),
+        f"{str(dtype)[6:]}")
 
 
 def main() -> int:
@@ -382,32 +780,59 @@ def main() -> int:
     card = device_line()
     print(card)
     name = torch.cuda.get_device_name(0)
-    bw, flops = peaks(name)
+    bw, flops, bf16_flops = peaks(name)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; bound peaks "
-          f"{bw / 1e12:.2f} TB/s, {flops / 1e12:.0f} TFLOP/s fp32")
+          f"{bw / 1e12:.2f} TB/s, {flops / 1e12:.0f} TFLOP/s fp32, "
+          f"{bf16_flops / 1e12:.0f} TFLOP/s bf16")
 
     phase("build")
     build()
 
     phase("kernel checks (kernel vs plain on the card, repeat bit-identical)")
     main_err = kernel_checks()
+    main_err.update(algorithm1_checks())
 
     trace = make_trace()
-    phase(f"main path, dense window {N}x{M} fp32")
+    phase(f"serving path, dense window {N}x{M} fp32")
     dense = main_path(trace, blocked=False)
-    phase(f"main path, blocked window {WIDTHS}")
+    phase(f"serving path, blocked window {WIDTHS}")
     blocked = main_path(trace, blocked=True)
 
-    phase("profile of one dense flush")
-    profile_flush(trace)
+    phase(f"Algorithm 1, chol_solve_fused at {TABLE1}, λ = {LAM0:g}")
+    solve_counts = algorithm1_path()
+    phase(f"NGD trainer, {NGD_STEPS} steps (examples/ngd_mlp_train.py --big)")
+    step_counts, step_inputs = trainer_path()
 
-    phase(f"kernel times at {N}x{M}, k={PER_MB}")
+    paths = {"serving, dense": dense["counts"],
+             "serving, blocked": blocked["counts"],
+             "Algorithm 1": solve_counts, "NGD trainer": step_counts}
+    for label, counts in paths.items():
+        print(f"  launches on {label}: "
+              + ", ".join(f"{k}={v}" for k, v in counts.items() if v))
+    new = ("gram", "gram_acc", "gram_sv", "cholesky", "ngd_apply")
+    missing = [k for k in new if solve_counts[k] + step_counts[k] == 0]
+    if missing:
+        raise AssertionError(f"Algorithm 1 kernels never launched: {missing}")
+
+    phase("profiles")
+    profile_flush(trace)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    S, v = solve_inputs(N, M, gen)
+    profile(f"one chol_solve_fused at {N}x{M}",
+            lambda: ops.chol_solve_fused(S, v, LAM0))
+    opt, st, p, Xd, yd = step_inputs
+    profile(f"one NGD step (n = {MLP_N})", lambda: ngd_step(opt, st, p, Xd, yd))
+    del S, v
+
+    phase(f"kernel times at {N}x{M}")
     t32 = timings(torch.float32, PER_MB, bw, flops)
     timings(torch.bfloat16, PER_MB, bw, flops)
+    t32.update(algorithm1_timings(torch.float32, bw, flops, flops))
+    algorithm1_timings(torch.bfloat16, bw, flops, bf16_flops)
 
     lines = []
     for kname, (source, replaces) in KERNELS.items():
-        launches = dense["counts"][kname] + blocked["counts"][kname]
+        launches = sum(counts[kname] for counts in paths.values())
         lines.append({"name": kname, "route": "cuda", "source": source,
                       "replaces": replaces, "launches": launches,
                       "max_abs_err": main_err[kname], **t32[kname]})

@@ -10,15 +10,19 @@ three block-separable contractions,
 so S can stay a sequence of per-layer (n, m_b) blocks end to end.
 Parameter-space vectors are plain tuples of per-block tensors.
 Accumulation is fp32 or wider whatever the storage dtype.
+``LazyBlockedScores`` defers building the blocks to their first use.
 """
 from __future__ import annotations
 
 import functools
-from typing import Optional, Sequence, Tuple, Union
+from typing import Any, Callable, Optional, Sequence, Tuple, Union
 
 import torch
 
-__all__ = ["BlockedScores", "as_blocked_vector", "block_norm", "is_blocked"]
+from repro_torch.core import pytree
+
+__all__ = ["BlockedScores", "LazyBlockedScores", "ScoreOperator",
+           "as_blocked_vector", "block_norm", "is_blocked"]
 
 BlockedVector = Tuple[torch.Tensor, ...]
 
@@ -99,6 +103,16 @@ class BlockedScores:
         return cls([p.contiguous() for p in torch.split(S, list(widths), dim=1)],
                    names=names)
 
+    @classmethod
+    def from_grads_pytree(cls, tree) -> "BlockedScores":
+        """Blocks from a per-sample-gradient tree: each leaf (n, *shape)
+        becomes an (n, prod(shape)) block, in flatten order (dict keys
+        sorted, as ``jax.tree_util`` orders them); names are the JAX key
+        paths' ``str``, as the reference writes them."""
+        pairs = pytree.leaves_with_path(tree)
+        return cls([leaf.reshape(leaf.shape[0], -1) for _, leaf in pairs],
+                   names=[pytree.pathstr(p) for p, _ in pairs])
+
     def split(self, v: torch.Tensor) -> BlockedVector:
         """Split a flat (m,) or (m, k) tensor into matching blocks."""
         if v.shape[0] != self.m:
@@ -137,9 +151,41 @@ class BlockedScores:
         return tuple(ct(b.to(acc), mode) @ w for b in self.blocks)
 
 
+class LazyBlockedScores:
+    """Deferred ``BlockedScores``: holds a builder and materializes the
+    blocks on first use (then caches them). The builder typically wraps
+    the per-sample-gradient pass (``repro_torch.optim.lazy_score_blocks``);
+    it may return a ``BlockedScores`` or a gradient tree."""
+
+    def __init__(self, builder: Callable[[], Any]):
+        self._builder = builder
+        self._cached: Optional[BlockedScores] = None
+
+    def materialize(self) -> BlockedScores:
+        if self._cached is None:
+            blocks = self._builder()
+            if not isinstance(blocks, BlockedScores):
+                blocks = BlockedScores.from_grads_pytree(blocks)
+            self._cached = blocks
+        return self._cached
+
+    def __getattr__(self, name):
+        # only for attributes this class lacks: gram, matvec, shape, ...
+        return getattr(self.materialize(), name)
+
+
+# Either concrete or lazy blocked scores — what solvers dispatch on.
+ScoreOperator = (BlockedScores, LazyBlockedScores)
+
+
 def is_blocked(S) -> bool:
     """True if ``S`` is a blocked score operator rather than a dense tensor."""
-    return isinstance(S, BlockedScores)
+    return isinstance(S, ScoreOperator)
+
+
+def materialize(S):
+    """``S`` with a lazy operator built; anything else unchanged."""
+    return S.materialize() if isinstance(S, LazyBlockedScores) else S
 
 
 def as_blocked_vector(S: BlockedScores, v) -> tuple[BlockedVector, bool]:

@@ -1,10 +1,16 @@
-"""Algorithm 1 — the damped natural-gradient solve (SᵀS + λI) x = v with
-m ≫ n, through the Cholesky factor of the n×n dual Gram.
+"""Solvers for the damped natural-gradient system (SᵀS + λI) x = v, m ≫ n.
 
-Port of the factorization half of ``repro/core/solvers.py``:
-``chol_factorize`` → ``CholFactorization`` (``solve``, ``solve_batch``,
-``with_damping``, ``update``/``downdate``). ``S`` is a dense (n, m) tensor
-or a ``BlockedScores`` operator. Modes follow the paper's §3:
+Port of ``repro/core/solvers.py``: Algorithm 1 through the Cholesky factor
+of the n×n dual Gram (``chol_solve`` = ``chol_factorize`` →
+``CholFactorization`` with ``solve``, ``solve_batch``, ``with_damping``,
+``update``/``downdate``) and the baselines the paper compares it with
+(``eigh_solve``, ``svd_solve``, ``cg_solve``, ``direct_solve``,
+``minsr_solve``), registered in ``SOLVERS``. ``S`` is a dense (n, m)
+tensor or a ``BlockedScores`` / ``LazyBlockedScores`` operator; with a
+blocked S, ``v`` may be flat or a tuple of per-block pieces and the
+solution comes back in the same form. There is no ``precision=``
+argument: the package keeps TF32 off for every fp32 matmul, which stands
+in for the reference's ``Precision.HIGHEST``. Modes follow the paper's §3:
 
 * ``"real"``      — plain real algorithm (default for real S);
 * ``"complex"``   — Hermitian Fisher F = S†S, conjugate transposes;
@@ -17,7 +23,8 @@ reference's ``jnp.linalg.cholesky`` returns, without a host sync.
 """
 from __future__ import annotations
 
-from typing import Literal, NamedTuple, Optional
+import functools
+from typing import Callable, Dict, Literal, NamedTuple, Optional
 
 import torch
 
@@ -28,12 +35,15 @@ from repro_torch.core.operator import (
     block_norm,
     ct,
     is_blocked,
+    materialize,
 )
 
 Mode = Literal["auto", "real", "complex", "real_part"]
 
-__all__ = ["CholFactorization", "SolverStats", "chol_factorize", "gram",
-           "residual"]
+__all__ = ["SOLVERS", "CholFactorization", "SolverStats", "center_scores",
+           "cg_solve", "chol_factorize", "chol_solve", "direct_solve",
+           "eigh_solve", "get_solver", "gram", "gram_chunked", "minsr_solve",
+           "residual", "svd_solve"]
 
 
 def _resolve_mode(S, mode: Mode) -> str:
@@ -61,6 +71,18 @@ def _promote(S):
     """Upcast a sub-fp32 window for the dual-space math."""
     tgt = acc_dtype(S.dtype)
     return S.astype(tgt) if is_blocked(S) else S.to(tgt)
+
+
+def _prepare(S, v, mode: Mode):
+    """mode-resolve → realify → promote S and v, dense or blocked."""
+    S = materialize(S)
+    mode = _resolve_mode(S, mode)
+    if mode == "real_part" and S.dtype.is_complex:
+        v = _map(lambda b: b.real if b.is_complex() else b, v)
+    S, mode = _realify(S, mode)
+    S = _promote(S)
+    tgt = acc_dtype(S.dtype)
+    return S, _map(lambda b: b.to(torch.promote_types(b.dtype, tgt)), v), mode
 
 
 def real_scalar(x, dtype: torch.dtype) -> float:
@@ -102,6 +124,19 @@ def _op_rmatvec(S, w, *, mode: str):
     return ct(S.to(acc), mode) @ w.to(acc)
 
 
+def center_scores(O: torch.Tensor, *, weights: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
+    """SR centering: S = (O − Ō)/√n (paper §3); with per-sample
+    probability ``weights`` (summing to 1), S = √w·(O − Σ w O)."""
+    n = O.shape[0]
+    if weights is None:
+        mean = O.mean(dim=0, keepdim=True)
+        rdtype = O.real.dtype if O.is_complex() else O.dtype
+        return (O - mean) / torch.tensor(float(n)).sqrt().to(rdtype)
+    mean = (weights[:, None] * O).sum(dim=0, keepdim=True)
+    return weights.sqrt()[:, None] * (O - mean)
+
+
 def gram(S, *, mode: str = "real") -> torch.Tensor:
     """W = S·Sᵀ (S·S† in complex mode), fp32+ accumulation; dense or
     blocked (block-wise accumulation, no concatenation)."""
@@ -109,6 +144,22 @@ def gram(S, *, mode: str = "real") -> torch.Tensor:
         return S.gram(mode=mode)
     S = S.to(acc_dtype(S.dtype))
     return S @ ct(S, mode)
+
+
+def gram_chunked(S, chunk: int, *, mode: str = "real") -> torch.Tensor:
+    """W = S·Sᵀ accumulated over parameter-axis chunks of width ``chunk``:
+    the upcast copy of a bf16 S is O(n·chunk), not O(n·m). A blocked
+    operator is already chunk-shaped and accumulates block-wise."""
+    if is_blocked(S):
+        return S.gram(mode=mode)
+    n, m = S.shape
+    dt = torch.promote_types(S.dtype, torch.complex64) if mode == "complex" \
+        else acc_dtype(S.dtype)
+    W = torch.zeros((n, n), dtype=dt, device=S.device)
+    for j in range(0, m, chunk):
+        Sc = S[:, j:j + chunk].to(acc_dtype(S.dtype))
+        W = W + Sc @ ct(Sc, mode)
+    return W
 
 
 class SolverStats(NamedTuple):
@@ -270,10 +321,16 @@ class CholFactorization:
 
 
 def chol_factorize(S, damping, *, mode: Mode = "auto",
+                   gram_chunk: Optional[int] = None,
+                   gram_fn: Optional[Callable] = None,
                    W: Optional[torch.Tensor] = None,
                    jitter: float = 0.0) -> CholFactorization:
     """The O(n²·m) + O(n³) setup of Algorithm 1, done once. ``W``: optional
-    precomputed undamped Gram of the prepared S (skips the Gram pass)."""
+    precomputed undamped Gram of the prepared S (skips the Gram pass).
+    For a dense S, ``gram_fn`` computes the Gram instead (e.g. the
+    ``kernels.ops.gram`` kernel), or ``gram_chunk`` accumulates it in
+    parameter chunks."""
+    S = materialize(S)
     orig_complex = S.dtype.is_complex
     resolved = _resolve_mode(S, mode)
     take_real_v = resolved == "real_part" and orig_complex
@@ -286,6 +343,10 @@ def chol_factorize(S, damping, *, mode: Mode = "auto",
         if tuple(W.shape) != (n, n):
             raise ValueError(f"precomputed Gram is {tuple(W.shape)}, prepared "
                              f"S needs ({n}, {n})")
+    elif gram_fn is not None and not is_blocked(S):
+        W = gram_fn(S)
+    elif gram_chunk is not None and not is_blocked(S):
+        W = gram_chunked(S, gram_chunk, mode=resolved)
     else:
         W = gram(S, mode=resolved)
     lam = real_scalar(damping, W.dtype)
@@ -293,3 +354,191 @@ def chol_factorize(S, damping, *, mode: Mode = "auto",
     L = cholesky(W + real_scalar(lam + jitter, W.dtype) * eye)
     return CholFactorization(S=S, mode=resolved, W=W, L=L, lam=lam,
                              jitter=jitter, take_real_v=take_real_v)
+
+
+def chol_solve(S, v, damping, *, mode: Mode = "auto",
+               gram_chunk: Optional[int] = None,
+               gram_fn: Optional[Callable] = None, jitter: float = 0.0,
+               return_stats: bool = False):
+    """Algorithm 1: (SᵀS + λI) x = v through the Cholesky factor of the
+    n×n Gram — W = S Sᵀ + λĨ, L = chol(W), u = S v, w = L⁻ᵀ L⁻¹ u,
+    x = (v − Sᵀ w)/λ. ``v`` is (m,) or (m, k), or blocked pieces for a
+    blocked S; ``return_stats`` adds a ``SolverStats``."""
+    fac = chol_factorize(S, damping, mode=mode, gram_chunk=gram_chunk,
+                         gram_fn=gram_fn, jitter=jitter)
+    return fac.solve(v, return_stats=return_stats)
+
+
+# ---------------------------------------------------------------------------
+# Appendix C baselines
+# ---------------------------------------------------------------------------
+
+def _bcast(d: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """Broadcast an (n,) vector against (n,) or (n, k) operands."""
+    return d if like.ndim == 1 else d[:, None]
+
+
+def _blocked_rhs(S, v):
+    """(S, v, blocked, was_flat) with a blocked S materialized and v split."""
+    if not is_blocked(S):
+        return S, v, False, True
+    S = materialize(S)
+    v, was_flat = as_blocked_vector(S, v)
+    return S, v, True, was_flat
+
+
+def eigh_solve(S, v, damping, *, mode: Mode = "auto", eps: float = 1e-12):
+    """Appendix C "eigh": S Sᵀ = U Σ² Uᵀ, V = Sᵀ U Σ⁻¹,
+    x = V (Σ² + λ)⁻¹ Vᵀ v + (v − V Vᵀ v)/λ, eigenvalues clamped at ``eps``.
+    V is never formed: Vᵀv and V·y are passes over S."""
+    S, v, blocked, was_flat = _blocked_rhs(S, v)
+    S, v, mode = _prepare(S, v, mode)
+    lam = real_scalar(damping, S.dtype)
+    W = gram(S, mode=mode)
+    # jnp.linalg.eigh symmetrizes its input
+    sig2, U = torch.linalg.eigh((W + ct(W, mode)) / 2)
+    sig2 = torch.clamp_min(sig2, eps)
+    Utu = ct(U, mode) @ _op_matvec(S, v)
+    Vt_v = Utu / _bcast(sig2.sqrt(), Utu)
+    core = Vt_v / _bcast(sig2 + lam, Vt_v)
+
+    def back(y):
+        return _op_rmatvec(S, U @ (y / _bcast(sig2.sqrt(), y)), mode=mode)
+
+    if blocked:
+        x = tuple(c + (vb - r) / lam
+                  for vb, c, r in zip(v, back(core), back(Vt_v)))
+        return BlockedScores.concat(x) if was_flat else x
+    return back(core) + (v - back(Vt_v)) / lam
+
+
+def _via_dense(solver, S, v, damping, **kw):
+    """Oracle route for a blocked S: densify, solve, re-block."""
+    S = materialize(S)
+    v_blocks, was_flat = as_blocked_vector(S, v)
+    x = solver(S.to_dense(), BlockedScores.concat(v_blocks), damping, **kw)
+    return x if was_flat else S.split(x)
+
+
+def svd_solve(S, v, damping, *, mode: Mode = "auto"):
+    """Appendix C "svda": thin SVD S = U Σ Vᵀ (Eq. 5),
+    x = V (Σ² + λ)⁻¹ Vᵀ v + (v − V Vᵀ v)/λ. A blocked S is densified (this
+    baseline is an oracle, not a production path)."""
+    if is_blocked(S):
+        return _via_dense(svd_solve, S, v, damping, mode=mode)
+    S, v, mode = _prepare(S, v, mode)
+    lam = real_scalar(damping, S.dtype)
+    _, s, Vt = torch.linalg.svd(S, full_matrices=False)
+    Vt_v = Vt @ v
+    core = Vt_v / _bcast(s * s + lam, Vt_v)
+    V = ct(Vt, mode)
+    return V @ core + (v - V @ Vt_v) / lam
+
+
+def _vdot_real(x, y) -> torch.Tensor:
+    """Σ Re(x)·Re(y) + Im(x)·Im(y) over a tensor or blocked vector (the
+    real part that ``jax.scipy.sparse.linalg.cg`` uses)."""
+    total = 0.0
+    for a, b in zip(x if isinstance(x, tuple) else (x,),
+                    y if isinstance(y, tuple) else (y,)):
+        total = total + (a.real * b.real).sum()
+        if a.is_complex() or b.is_complex():
+            total = total + (a.imag * b.imag).sum()
+    return total
+
+
+def _cg(A, b, *, tol: float, maxiter: Optional[int]):
+    """Conjugate gradient from x₀ = 0, as ``jax.scipy.sparse.linalg.cg``:
+    stop once ‖r‖² ≤ tol²·‖b‖² or after ``maxiter`` (default 10·size)
+    iterations. ``b`` is a tensor or a tuple of blocks. One host read of
+    the residual norm per iteration."""
+    blocked = isinstance(b, tuple)
+    lmap = (lambda f, *xs: tuple(f(*t) for t in zip(*xs))) if blocked \
+        else (lambda f, *xs: f(*xs))
+    pieces = b if blocked else (b,)
+    if maxiter is None:
+        maxiter = 10 * sum(p.numel() for p in pieces)
+    dtype = functools.reduce(torch.promote_types, [p.dtype for p in pieces])
+    atol2 = tol ** 2 * float(_vdot_real(b, b))
+    x = lmap(torch.zeros_like, b)
+    r = p = b
+    gamma = _vdot_real(r, r).to(dtype)
+    k = 0
+    while k < maxiter and float(gamma.real) > atol2:
+        Ap = A(p)
+        alpha = gamma / _vdot_real(p, Ap).to(dtype)
+        x = lmap(lambda xb, pb: xb + alpha * pb, x, p)
+        r = lmap(lambda rb, ab: rb - alpha * ab, r, Ap)
+        gamma_new = _vdot_real(r, r).to(dtype)
+        beta = gamma_new / gamma
+        p = lmap(lambda rb, pb: rb + beta * pb, r, p)
+        gamma = gamma_new
+        k += 1
+    return x
+
+
+def cg_solve(S, v, damping, *, mode: Mode = "auto", tol: float = 1e-8,
+             maxiter: Optional[int] = None):
+    """Matrix-free conjugate gradient on (SᵀS + λI) x = v, O(n·m) per
+    iteration (the paper's §3 iterative baseline). With a blocked S the
+    iterates stay blocked."""
+    S, v, blocked, was_flat = _blocked_rhs(S, v)
+    S, v, mode = _prepare(S, v, mode)
+    lam = real_scalar(damping, S.dtype)
+
+    def matvec(p):
+        y = _op_rmatvec(S, _op_matvec(S, p), mode=mode)
+        if blocked:
+            return tuple(yb + lam * pb for yb, pb in zip(y, p))
+        return y + lam * p
+
+    x = _cg(matvec, v, tol=tol, maxiter=maxiter)
+    return BlockedScores.concat(x) if blocked and was_flat else x
+
+
+def direct_solve(S, v, damping, *, mode: Mode = "auto"):
+    """Naive O(m³): form the m×m damped Fisher and solve it. Small-m oracle;
+    a blocked S is densified."""
+    if is_blocked(S):
+        return _via_dense(direct_solve, S, v, damping, mode=mode)
+    S, v, mode = _prepare(S, v, mode)
+    lam = real_scalar(damping, S.dtype)
+    m = S.shape[1]
+    F = ct(S, mode) @ S + lam * torch.eye(m, dtype=S.dtype, device=S.device)
+    return torch.linalg.solve(F, v)
+
+
+def minsr_solve(S, f, damping, *, mode: Mode = "auto"):
+    """RVB+23 minSR: x = Sᵀ (S Sᵀ + λĨ)⁻¹ f, which equals
+    ``chol_solve(S, Sᵀf, λ)`` (Appendix B). ``f`` is a sample-space vector
+    for dense and blocked S alike; a blocked S gives a blocked x."""
+    S = materialize(S)
+    mode = _resolve_mode(S, mode)
+    if mode == "real_part" and S.dtype.is_complex:
+        f = f.real if f.is_complex() else f
+    S, mode = _realify(S, mode)
+    tgt = acc_dtype(S.dtype)
+    S = _promote(S)
+    f = f.to(torch.promote_types(f.dtype, tgt))
+    lam = real_scalar(damping, tgt)
+    W = gram(S, mode=mode)
+    L = cholesky(W + lam * torch.eye(S.shape[0], dtype=W.dtype,
+                                     device=W.device))
+    return _op_rmatvec(S, tri_solve(L, f, mode), mode=mode)
+
+
+SOLVERS: Dict[str, Callable] = {
+    "chol": chol_solve,
+    "eigh": eigh_solve,
+    "svd": svd_solve,
+    "cg": cg_solve,
+    "direct": direct_solve,
+}
+
+
+def get_solver(name: str) -> Callable:
+    try:
+        return SOLVERS[name]
+    except KeyError:
+        raise KeyError(f"unknown solver '{name}'; have {sorted(SOLVERS)}") \
+            from None

@@ -1,14 +1,25 @@
-"""Hand-written CUDA kernels of the serve path, for Hopper (``sm_90a``).
+"""Hand-written CUDA kernels of the port, for Hopper (``sm_90a``).
 
-Each TPU kernel of ``repro.kernels`` that this slice ports has a CUDA C++
-source under ``csrc/``, a launch wrapper, and a plain PyTorch twin in
+Each TPU kernel of ``repro.kernels`` that the port has reached has a CUDA
+C++ source under ``csrc/``, a launch wrapper, and a plain PyTorch twin in
 ``ref.py``; ``ops.py`` dispatches between them (CUDA tensors → kernel,
 CPU tensors → plain version) and ``_build.py`` compiles the sources with
 ``nvcc`` on first use.
 
+Algorithm 1 (the trainer path, ``ops.chol_solve_fused``):
+
+* ``gram``        — W = S·Sᵀ, split-m lower tiles (``gram_pallas``).
+* ``gram_acc``    — W ← W + S·Sᵀ in place (``gram_acc_pallas``).
+* ``gram_sv``     — (S·Sᵀ, S·v) in one pass (``gram_sv_pallas``).
+* ``cholesky``    — panel Cholesky, any n (``cholesky_pallas``).
+* ``ngd_apply``   — x = (v − Sᵀw)/λ (``ngd_apply_pallas``).
+
+The serve path (``ops.serve_solve``, ``ops.fold_cols``):
+
 * ``sv_cross``    — U = S·V, split-m cross pass (``sv_cross_pallas``).
 * ``serve_apply`` — X = (V − Sᵀw)/λ (``serve_apply_pallas``).
-* ``trisolve``    — w = L⁻ᵀL⁻¹U, the substitution (``_trisolve``).
+* ``trisolve``    — w = L⁻ᵀL⁻¹U, the substitution (``_trisolve``); also
+  the triangular solves of ``chol_solve_fused``.
 * ``serve_solve`` — cross → substitution → apply, three launches on one
   stream (``serve_solve_pallas``).
 * ``fold_cols``   — (S·rowsᵀ, rows·rowsᵀ) in one pass (``fold_cols_pallas``).
@@ -17,8 +28,15 @@ The window may be stored in fp32 or bf16; every kernel and every plain
 version accumulates in fp32 and returns fp32.
 """
 from repro_torch.kernels.ops import (
+    chol_solve_fused,
+    cholesky,
     fold_cols,
+    gram,
+    gram_acc,
+    gram_blocks,
+    gram_sv,
     launch_counts,
+    ngd_apply,
     reset_launch_counts,
     serve_apply,
     serve_solve,
@@ -26,5 +44,6 @@ from repro_torch.kernels.ops import (
     trisolve,
 )
 
-__all__ = ["fold_cols", "launch_counts", "reset_launch_counts", "serve_apply",
-           "serve_solve", "sv_cross", "trisolve"]
+__all__ = ["chol_solve_fused", "cholesky", "fold_cols", "gram", "gram_acc",
+           "gram_blocks", "gram_sv", "launch_counts", "ngd_apply", "reset_launch_counts",
+           "serve_apply", "serve_solve", "sv_cross", "trisolve"]

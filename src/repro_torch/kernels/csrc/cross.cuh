@@ -19,10 +19,7 @@
 // any m works, including widths that break 16-byte vector loads.
 #pragma once
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstddef>
+#include "common.cuh"
 
 namespace repro {
 
@@ -30,9 +27,6 @@ constexpr int kCrossThreads = 256;   // 8 warps
 constexpr int kRowsPerWarp = 4;
 constexpr int kRowsPerBlock = 32;    // 8 warps x 4 rows; mirrored in Python
 constexpr int kTileJ = 128;          // m columns per stage, 4 per lane; mirrored in Python
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename TX, typename TY, bool Y_KMAJOR, int KT>
 __global__ void __launch_bounds__(kCrossThreads)
@@ -129,8 +123,6 @@ __global__ void reduce_partials_kernel(const float* __restrict__ part, int P,
   out[e] = s;
 }
 
-inline int k_tile(int k) { return k <= 1 ? 1 : k <= 4 ? 4 : k <= 8 ? 8 : 16; }
-
 template <typename TX, typename TY, bool Y_KMAJOR>
 cudaError_t launch_cross(const TX* X, int n_x, const TX* X2, int n_x2, const TY* Y,
                          int m, int k, int P, int chunk, float* part, cudaStream_t st) {
@@ -163,11 +155,3 @@ inline cudaError_t launch_reduce(const float* part, int P, int count, float* out
 }
 
 }  // namespace repro
-
-extern "C" const char* repro_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
-
-// The library links its own (static) CUDA runtime, whose current device is
-// not PyTorch's: the wrappers select the operands' device before a launch.
-extern "C" int repro_set_device(int device) { return cudaSetDevice(device); }

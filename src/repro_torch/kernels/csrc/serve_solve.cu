@@ -16,64 +16,21 @@
 //   2. trisolve_kernel: sums the partials in fixed order, then solves
 //      L y = u and Lᵀ w = y by panels of 32 rows, one block per RHS column,
 //      reading L from global memory (L2 holds it);
-//   3. serve_apply_kernel: X = (V − Sᵀw)/λ, one thread per column of S.
+//   3. serve_apply_kernel (apply.cuh, shared with ngd_apply.cu):
+//      X = (V − Sᵀw)/λ, one thread per column of S.
 //
 // Bounds: passes 1 and 3 each read the window once (bytes; k/2 flop per byte
 // at fp32). The substitution has 2n dependent steps and is latency-bound: it
 // batches 32 steps per panel inside one warp (shared memory and shuffles, no
 // block barrier, pivot reciprocals off the dependency chain) and spreads each
 // panel's trailing update over 1024 threads with coalesced reads of L.
+#include "apply.cuh"
 #include "cross.cuh"
 
 namespace {
 
-constexpr int kApplyThreads = 128;
-constexpr int kApplyTileI = 128;   // rows of w staged per shared-memory tile
 constexpr int kTriThreads = 1024;
 constexpr int kPanel = 32;
-
-// X[j, c] = (V[j, c] − Σ_i S[i, j] w[i, c]) / λ. The contraction runs over n,
-// the strided axis of the row-major window: each thread owns one column j, so
-// a warp's reads of S[i, j..j+31] are coalesced, and w is staged in shared
-// memory (a broadcast read for every thread).
-template <typename TS, int KT>
-__global__ void __launch_bounds__(kApplyThreads)
-serve_apply_kernel(const TS* __restrict__ S, const float* __restrict__ w,
-                   const float* __restrict__ V, float* __restrict__ X, int n, int m, int k,
-                   float lam) {
-  __shared__ float ws[kApplyTileI][KT];
-  const int j = blockIdx.x * kApplyThreads + threadIdx.x;
-  const int c0 = blockIdx.y * KT;
-  float acc[KT];
-#pragma unroll
-  for (int c = 0; c < KT; ++c) acc[c] = 0.f;
-  for (int i0 = 0; i0 < n; i0 += kApplyTileI) {
-    const int ti = min(kApplyTileI, n - i0);
-    for (int e = threadIdx.x; e < kApplyTileI * KT; e += kApplyThreads) {
-      const int ii = e / KT, c = e % KT, cg = c0 + c;
-      ws[ii][c] = (ii < ti && cg < k) ? w[(size_t)(i0 + ii) * k + cg] : 0.f;
-    }
-    __syncthreads();
-    if (j < m) {
-      const TS* col = S + (size_t)i0 * m + j;
-#pragma unroll 8
-      for (int ii = 0; ii < ti; ++ii) {
-        const float s = repro::to_f32(col[(size_t)ii * m]);
-#pragma unroll
-        for (int c = 0; c < KT; ++c) acc[c] = fmaf(s, ws[ii][c], acc[c]);
-      }
-    }
-    __syncthreads();
-  }
-  if (j < m) {
-#pragma unroll
-    for (int c = 0; c < KT; ++c) {
-      if (c0 + c >= k) break;
-      const size_t o = (size_t)j * k + c0 + c;
-      X[o] = (V[o] - acc[c]) / lam;
-    }
-  }
-}
 
 // Warp 0 loads the diagonal block L[p0:p0+32, p0:p0+32] into shared memory
 // (32 independent loads per lane, one latency) and returns, per lane, the
@@ -182,27 +139,6 @@ trisolve_kernel(const float* __restrict__ L, const float* __restrict__ part, int
   for (int i = tid; i < n; i += kTriThreads) w[(size_t)i * k + c] = r[i];
 }
 
-template <typename TS>
-cudaError_t launch_apply(const TS* S, const float* w, const float* V, float* X, int n, int m,
-                         int k, float lam, cudaStream_t st) {
-  const int kt = repro::k_tile(k);
-  const dim3 grid((m + kApplyThreads - 1) / kApplyThreads, (k + kt - 1) / kt);
-  switch (kt) {
-    case 1:
-      serve_apply_kernel<TS, 1><<<grid, kApplyThreads, 0, st>>>(S, w, V, X, n, m, k, lam);
-      break;
-    case 4:
-      serve_apply_kernel<TS, 4><<<grid, kApplyThreads, 0, st>>>(S, w, V, X, n, m, k, lam);
-      break;
-    case 8:
-      serve_apply_kernel<TS, 8><<<grid, kApplyThreads, 0, st>>>(S, w, V, X, n, m, k, lam);
-      break;
-    default:
-      serve_apply_kernel<TS, 16><<<grid, kApplyThreads, 0, st>>>(S, w, V, X, n, m, k, lam);
-  }
-  return cudaGetLastError();
-}
-
 cudaError_t launch_trisolve(const float* L, const float* part, int P, int n, int k, float* w,
                             cudaStream_t st) {
   const size_t smem = (size_t)n * sizeof(float);
@@ -227,8 +163,8 @@ int serve_solve_impl(const void* S, const void* L, const void* V, void* part, vo
   err = launch_trisolve(static_cast<const float*>(L), static_cast<const float*>(part), P,
                         n, k, static_cast<float*>(w), st);
   if (err != cudaSuccess) return err;
-  return launch_apply<TS>(s, static_cast<const float*>(w), v, static_cast<float*>(X), n, m,
-                          k, lam, st);
+  return repro::launch_apply<TS, float>(s, static_cast<const float*>(w), v,
+                                        static_cast<float*>(X), n, m, k, lam, st);
 }
 
 }  // namespace
@@ -257,9 +193,10 @@ extern "C" int serve_apply_launch(const void* S, int bf16, const void* w, const 
   const float* wp = static_cast<const float*>(w);
   const float* v = static_cast<const float*>(V);
   float* x = static_cast<float*>(X);
-  return bf16 ? launch_apply<__nv_bfloat16>(static_cast<const __nv_bfloat16*>(S), wp, v, x, n,
-                                            m, k, lam, st)
-              : launch_apply<float>(static_cast<const float*>(S), wp, v, x, n, m, k, lam, st);
+  return bf16 ? repro::launch_apply<__nv_bfloat16, float>(
+                    static_cast<const __nv_bfloat16*>(S), wp, v, x, n, m, k, lam, st)
+              : repro::launch_apply<float, float>(static_cast<const float*>(S), wp, v, x, n, m,
+                                                  k, lam, st);
 }
 
 // L (n, n) fp32 lower; part (P, n, k) fp32 partials of u; w (n, k) fp32.

@@ -1,5 +1,6 @@
-"""Public wrappers of the serve-path kernels, with the reference's
-``mode`` dispatch (``repro/kernels/ops.py``).
+"""Public wrappers of the kernels, with the reference's ``mode`` dispatch
+(``repro/kernels/ops.py``), and ``chol_solve_fused``: Algorithm 1 composed
+from the kernels.
 
 ``mode``:
 
@@ -22,13 +23,23 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.operator import BlockedScores, as_blocked_vector, is_blocked
+from repro_torch.core.operator import (BlockedScores, as_blocked_vector,
+                                       is_blocked, materialize)
+from repro_torch.core.solvers import real_scalar
+from repro_torch.kernels import cholesky as _chol
 from repro_torch.kernels import fold as _fold
+from repro_torch.kernels import gram as _gram
+from repro_torch.kernels import ngd_apply as _apply
 from repro_torch.kernels import ref
 from repro_torch.kernels import serve_solve as _serve
 
-__all__ = ["fold_cols", "launch_counts", "reset_launch_counts", "serve_apply",
-           "serve_solve", "sv_cross", "trisolve"]
+__all__ = ["chol_solve_fused", "cholesky", "fold_cols",
+           "gram", "gram_acc", "gram_blocks", "gram_sv", "launch_counts", "ngd_apply",
+           "reset_launch_counts", "serve_apply", "serve_solve", "sv_cross",
+           "trisolve"]
+
+_COUNTERS = (_serve.LAUNCHES, _fold.LAUNCHES, _gram.LAUNCHES,
+             _chol.LAUNCHES, _apply.LAUNCHES)
 
 MODES = (None, "ref", "kernel")
 
@@ -59,11 +70,11 @@ def _f32(t: torch.Tensor) -> torch.Tensor:
 
 def launch_counts() -> dict:
     """Kernel launches per wrapper since the last reset."""
-    return {**_serve.LAUNCHES, **_fold.LAUNCHES}
+    return {k: v for counts in _COUNTERS for k, v in counts.items()}
 
 
 def reset_launch_counts() -> None:
-    for counts in (_serve.LAUNCHES, _fold.LAUNCHES):
+    for counts in _COUNTERS:
         for name in counts:
             counts[name] = 0
 
@@ -147,3 +158,110 @@ def fold_cols(S, rows, *, mode: Optional[str] = None):
         cols = cb if cols is None else cols + cb
         corner = kb if corner is None else corner + kb
     return cols, corner
+
+
+# ---------------------------------------------------------------------------
+# Algorithm 1: gram, gram_sv, cholesky, ngd_apply and their composition
+# ---------------------------------------------------------------------------
+
+def gram(S, *, mode: Optional[str] = None) -> torch.Tensor:
+    """W = S·Sᵀ (n, n) fp32. A blocked operator routes to ``gram_blocks``."""
+    if is_blocked(S):
+        return gram_blocks(S, mode=mode)
+    if _use_kernel(mode, S):
+        return _gram.gram_cuda(S)
+    return ref.gram_ref(S)
+
+
+def gram_acc(S: torch.Tensor, W: torch.Tensor, *,
+             mode: Optional[str] = None) -> torch.Tensor:
+    """W ← W + S·Sᵀ in place, returned: one link of ``gram_blocks``'s
+    chain. W (n, n) fp32 is the accumulator on both routes (the port's
+    counterpart of the TPU kernel's donated alias)."""
+    if _use_kernel(mode, S, W):
+        return _gram.gram_acc_cuda(S, W)
+    return W.add_(ref.gram_ref(S))
+
+
+def gram_blocks(S, *, mode: Optional[str] = None) -> torch.Tensor:
+    """W = Σ_b S_b·S_bᵀ over per-layer blocks, fp32: ``gram`` on the first
+    block, then ``gram_acc`` of every further block into the same (n, n)
+    buffer, in place — one accumulator however many blocks, and no flat
+    (n, m) concatenation."""
+    S = materialize(S)
+    blocks = S.blocks if is_blocked(S) else tuple(S)
+    W = gram(blocks[0], mode=mode)
+    for b in blocks[1:]:
+        W = gram_acc(b, W, mode=mode)
+    return W
+
+
+def gram_sv(S: torch.Tensor, v: torch.Tensor, *,
+            W: Optional[torch.Tensor] = None, mode: Optional[str] = None):
+    """(W, u) = ([W +] S·Sᵀ, S·v) fp32 in one pass over S; a given W (n, n)
+    fp32 is the accumulator and is updated in place, as in ``gram_acc``.
+    The kernel rounds v to S's dtype first, as the TPU kernel does; the
+    plain version keeps v's precision, as the reference's CPU route does."""
+    if _use_kernel(mode, S, v):
+        return _gram.gram_sv_cuda(S, v, W)
+    Wb, u = ref.gram_sv_ref(S, v)
+    return (Wb, u) if W is None else (W.add_(Wb), u)
+
+
+def ngd_apply(S: torch.Tensor, w: torch.Tensor, v: torch.Tensor, lam, *,
+              mode: Optional[str] = None) -> torch.Tensor:
+    """x = (v − Sᵀ·w)/λ, fp32 (m,)."""
+    if _use_kernel(mode, S, w, v):
+        n, m = S.shape
+        v = v.reshape(m)
+        if v.dtype not in _serve.WINDOW_DTYPES:
+            v = _f32(v)
+        return _apply.ngd_apply_cuda(S, _f32(w).reshape(n), v.contiguous(),
+                                     float(lam))
+    return ref.ngd_apply_ref(S, w, v, lam)
+
+
+def cholesky(W: torch.Tensor, *, mode: Optional[str] = None) -> torch.Tensor:
+    """L = chol(W), lower, fp32. The panel kernel takes every n (the
+    reference's n ≤ 1024 cap is the TPU's VMEM; this kernel works in device
+    memory). Pivots in the kernel are clamped at 1e-30, where the plain
+    version gives NaN for a W that is not positive definite."""
+    if _use_kernel(mode, W):
+        return _chol.cholesky_cuda(_f32(W).contiguous())
+    return ref.cholesky_ref(W)
+
+
+def chol_solve_fused(S, v, damping, *, mode: Optional[str] = None):
+    """Algorithm 1 composed from the kernels:
+
+        (W, u) = gram_sv(S, v)          one pass over S
+        L      = cholesky(W + λĨ)
+        w      = L⁻ᵀ L⁻¹ u              the substitution kernel
+        x      = ngd_apply(S, w, v, λ)  the second pass over S
+
+    With a blocked S the same composition runs per block: (W, u)
+    contributions add up across blocks, then the apply runs block by
+    block; ``v`` may be flat or a tuple of per-block pieces and x comes
+    back in the same form."""
+    if is_blocked(S):
+        return _chol_solve_fused_blocked(S, v, damping, mode=mode)
+    lam = real_scalar(damping, torch.float32)
+    W, u = gram_sv(S, v, mode=mode)
+    W.diagonal().add_(lam)
+    L = cholesky(W, mode=mode)
+    return ngd_apply(S, trisolve(L, u, mode=mode), v, lam, mode=mode)
+
+
+def _chol_solve_fused_blocked(S, v, damping, *, mode: Optional[str] = None):
+    S = materialize(S)
+    v_blocks, was_flat = as_blocked_vector(S, v)
+    lam = real_scalar(damping, torch.float32)
+    # one (n, n) accumulator through the blocks, as in gram_blocks
+    W, u = gram_sv(S.blocks[0], v_blocks[0], mode=mode)
+    for b, vb in zip(S.blocks[1:], v_blocks[1:]):
+        u += gram_sv(b, vb, W=W, mode=mode)[1]
+    W.diagonal().add_(lam)
+    w = trisolve(cholesky(W, mode=mode), u, mode=mode)
+    x = tuple(ngd_apply(b, w, vb, lam, mode=mode)
+              for b, vb in zip(S.blocks, v_blocks))
+    return BlockedScores.concat(x) if was_flat else x

@@ -1,19 +1,64 @@
-"""Plain PyTorch versions of the serve-path kernels.
+"""Plain PyTorch versions of the kernels.
 
-Port of the serve half of ``repro/kernels/ref.py``, plus ``trisolve_ref``
-(the substitution that the TPU kernel runs in-kernel as ``_trisolve``).
-The CPU path of ``ops``, the oracle of the CUDA kernels on the card, and
-the reference the tests compare with. Accumulation is fp32 or wider
-whatever the storage dtype; fp32 matmuls run without TF32.
+Port of ``repro/kernels/ref.py`` (all but ``cholupdate_ref``, which comes
+with its kernel), plus ``trisolve_ref`` (the substitution that the TPU
+serve kernel runs in-kernel as ``_trisolve``). The CPU path of ``ops``,
+the oracle of the CUDA kernels on the card, and the reference the tests
+compare with. Accumulation is fp32 or wider whatever the storage dtype;
+fp32 matmuls run without TF32.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.operator import acc_dtype
+from repro_torch.core.solvers import cholesky
 
-__all__ = ["sv_cross_ref", "serve_apply_ref", "serve_solve_ref",
-           "trisolve_ref", "fold_cols_ref"]
+__all__ = ["gram_ref", "gram_sv_ref", "ngd_apply_ref", "cholesky_ref",
+           "chol_solve_ref", "sv_cross_ref", "serve_apply_ref",
+           "serve_solve_ref", "trisolve_ref", "fold_cols_ref"]
+
+
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    """fp32 as the reference's ``astype(float32)`` (a complex operand
+    loses its imaginary part there too)."""
+    return (t.real if t.is_complex() else t).to(torch.float32)
+
+
+def gram_ref(S: torch.Tensor) -> torch.Tensor:
+    """W = S @ Sᵀ in fp32."""
+    S32 = _f32(S)
+    return S32 @ S32.T
+
+
+def gram_sv_ref(S: torch.Tensor, v: torch.Tensor):
+    """(W, u) = (S @ Sᵀ, S @ v) in fp32; v keeps its own precision (the CUDA
+    kernel, like the TPU one, rounds it to S's dtype first)."""
+    S32 = _f32(S)
+    return S32 @ S32.T, S32 @ _f32(v)
+
+
+def ngd_apply_ref(S: torch.Tensor, w: torch.Tensor, v: torch.Tensor,
+                  lam) -> torch.Tensor:
+    """x = (v − Sᵀ @ w) / λ in fp32."""
+    lam32 = torch.tensor(float(lam), dtype=torch.float32, device=S.device)
+    return (_f32(v) - _f32(S).T @ _f32(w)) / lam32
+
+
+def cholesky_ref(W: torch.Tensor) -> torch.Tensor:
+    """Lower L = chol(W) in fp32, row-major; NaN when W is not positive
+    definite (the kernel clamps pivots at 1e-30 instead)."""
+    return cholesky(_f32(W))
+
+
+def chol_solve_ref(S: torch.Tensor, v: torch.Tensor, lam) -> torch.Tensor:
+    """Full Algorithm 1 in fp32 — the oracle of the kernel-composed
+    solver."""
+    W, u = gram_sv_ref(S, v)
+    lam32 = torch.tensor(float(lam), dtype=torch.float32, device=W.device)
+    L = cholesky(W + lam32 * torch.eye(W.shape[0], device=W.device))
+    w = trisolve_ref(L, u[:, None])[:, 0] if u.ndim == 1 else trisolve_ref(L, u)
+    return ngd_apply_ref(S, w, v, lam)
 
 
 def _ct(A: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,137 @@
+"""Damped natural-gradient descent — the paper's use case.
+
+Port of ``repro/optim/ngd.py``. ``init``/``update`` in the optax shape,
+with the per-sample score matrix S passed beside the mean gradient v:
+
+    nat_grad = solve(S, v, λ)          # Algorithm 1 by default
+    buf      = μ·buf + nat_grad        # heavy-ball momentum
+    Δθ       = −lr · buf
+
+``scores`` is a dense (n, m) tensor or a ``BlockedScores`` /
+``LazyBlockedScores`` operator whose blocks follow the gradient tree's
+flatten order. The state is per leaf: the momentum buffer is a tree
+shaped like the parameters (fp32, or complex64 for complex leaves), so
+with blocked scores no length-m vector exists anywhere. The solver is a
+name in ``repro_torch.core.SOLVERS`` or any ``f(S, v, λ) -> x``, e.g.
+``repro_torch.kernels.ops.chol_solve_fused``, which runs the hand-written
+kernels on CUDA tensors.
+
+``curvature=`` takes ``None`` or ``"exact"`` (solve from scratch every
+step, the paper's method). A streaming curvature policy comes with the
+port's curvature slice and raises ``NotImplementedError`` until then.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, NamedTuple, Optional, Union
+
+import torch
+
+from repro_torch.core import block_norm, get_solver, is_blocked
+from repro_torch.core.damping import ConstantDamping, DampingState
+from repro_torch.core.pytree import leaves, tree_map, unflatten_like
+from repro_torch.optim.schedules import constant
+from repro_torch.optim.scores import flatten_like
+
+__all__ = ["NGDState", "NaturalGradient", "global_norm"]
+
+
+def global_norm(tree) -> torch.Tensor:
+    """Global 2-norm over all leaves of a tree (fp32, complex-safe)."""
+    return block_norm(tuple(leaves(tree)))
+
+
+def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """fp32 for real leaves, complex64+ for complex ones: the cast must never
+    drop the imaginary part of a complex-mode natural gradient."""
+    return torch.promote_types(dtype, torch.float32)
+
+
+class NGDState(NamedTuple):
+    step: int
+    momentum: Any              # per-leaf heavy-ball tree (params-shaped)
+    damping: DampingState
+
+
+class NaturalGradient:
+    """Natural gradient descent with the Algorithm-1 solve, momentum and
+    clipping.
+
+    Args:
+      learning_rate: float or schedule ``step -> lr``.
+      damping: float λ, or a damping policy with ``init()``/``update()``.
+      solver: a name in ``repro_torch.core.SOLVERS``, or any
+        ``f(S, v, λ) -> x``.
+      momentum: heavy-ball coefficient μ (0 disables).
+      clip_natgrad_norm: optional global-norm clip on the natural gradient.
+      curvature: ``None`` / ``"exact"``: the per-step solve.
+    """
+
+    requires_scores = True
+
+    def __init__(self, learning_rate: Union[float, Callable] = 1e-3, *,
+                 damping=1e-3, solver: Union[str, Callable] = "chol",
+                 momentum: float = 0.9,
+                 clip_natgrad_norm: Optional[float] = None,
+                 curvature=None):
+        self.lr = learning_rate if callable(learning_rate) \
+            else constant(learning_rate)
+        self.damping_policy = damping if hasattr(damping, "init") \
+            else ConstantDamping(damping)
+        self.solver = get_solver(solver) if isinstance(solver, str) else solver
+        self.momentum = float(momentum)
+        self.clip = clip_natgrad_norm
+        if curvature not in (None, "exact"):
+            raise NotImplementedError(
+                "curvature= takes None or 'exact' in the torch port; the "
+                "streaming curvature policies come with the port's curvature "
+                "slice (repro/curvature/streaming.py, cache.py); got "
+                + repr(curvature))
+
+    def init(self, params) -> NGDState:
+        return NGDState(
+            step=0,
+            momentum=tree_map(lambda p: torch.zeros(
+                p.shape, dtype=_acc_dtype(p.dtype), device=p.device), params),
+            damping=self.damping_policy.init())
+
+    def _nat_grad_tree(self, grads, scores, damping: DampingState):
+        """Solve (SᵀS + λI) x = v; x as a grads-shaped tree."""
+        lam = damping.lam
+        gl = leaves(grads)
+        if is_blocked(scores):
+            # the gradient tree IS the blocked RHS: one (m_b,) piece per leaf
+            widths = tuple(g.numel() for g in gl)
+            if widths != tuple(scores.block_widths):
+                raise ValueError(
+                    f"gradient leaf sizes {widths} don't match score block "
+                    f"widths {tuple(scores.block_widths)}")
+            v = tuple(g.reshape(-1).to(_acc_dtype(g.dtype)) for g in gl)
+            x = self.solver(scores, v, lam)
+            return unflatten_like(grads, [
+                xb.reshape(g.shape).to(_acc_dtype(xb.dtype))
+                for xb, g in zip(x, gl)])
+        v, unravel = flatten_like(grads)
+        nat = self.solver(scores, v.to(_acc_dtype(v.dtype)), lam)
+        return tree_map(lambda x: x.to(_acc_dtype(x.dtype)), unravel(nat))
+
+    def update(self, grads, state: NGDState, params, *, scores):
+        """Returns (updates, new_state); add the updates to the params.
+        ``scores`` is S: dense (n, m) or blocked in flatten order."""
+        del params  # the signature of the reference; NGD needs no params
+        nat = self._nat_grad_tree(grads, scores, state.damping)
+        if self.clip is not None:
+            scale = torch.clamp(self.clip / (global_norm(nat) + 1e-12),
+                                max=1.0)
+            nat = tree_map(lambda x: x * scale, nat)
+        buf = tree_map(lambda b, x: self.momentum * b + x, state.momentum, nat)
+        lr = self.lr(state.step)
+        updates = tree_map(lambda b, g: (-lr * b).to(g.dtype), buf, grads)
+        return updates, NGDState(state.step + 1, buf, state.damping)
+
+    def update_damping(self, state: NGDState, *, actual_reduction,
+                       predicted_reduction) -> NGDState:
+        """Trust-region λ adaptation hook (call after evaluating the step)."""
+        d = self.damping_policy.update(
+            state.damping, actual_reduction=actual_reduction,
+            predicted_reduction=predicted_reduction)
+        return state._replace(damping=d)

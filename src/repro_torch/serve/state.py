@@ -20,6 +20,7 @@ from typing import NamedTuple, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch.core.device import resolve_device
 from repro_torch.core.operator import BlockedScores, is_blocked
 from repro_torch.core.solvers import (CholFactorization, _realify, cholesky,
                                       chol_factorize, gram, real_scalar)
@@ -85,16 +86,6 @@ class ServeState(NamedTuple):
             h.update(_dtype_tag(t).encode())
             h.update(a.view(np.uint8).reshape(-1))
         return h.hexdigest()
-
-
-def resolve_device(device=None) -> torch.device:
-    """The device for state built from host data: CUDA unless the caller
-    asks for another. Raises when CUDA is asked for and absent."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available; pass device='cpu' "
-                           "to run the plain versions on the CPU")
-    return dev
 
 
 def _window_to(S, device):
