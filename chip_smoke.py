@@ -26,8 +26,24 @@ Phases, each printing its own lines:
    its update held to the float64 step of its own S and g at the plain
    ``"chol"`` step's distance plus 1e-3 (the same step on the CPU is
    printed beside it);
-8. profiles of one dense flush, one (1024, 100_000) solve and one NGD
-   step; per-kernel launches, times, plain and library times, bounds.
+8. cholupdate checks — the rank-k rotation kernel against its plain
+   version (the composed method) at n ∈ {16, 24, 64, 100, 1024, 2048},
+   k ∈ {1, 3, 8, 16, 32}, update and downdate; repeats bit-identical,
+   zero and −0.0 columns exact no-ops, the upper triangle exactly 0;
+9. maintained factorization — 8 slides of 16 columns of a 1024 × 100_000
+   fp32 window (λ = 1e-3), each ``fac.update(X_new).downdate(X_old)`` on
+   the kernel, held to the refactorized factor (5e-3 max-abs,
+   ``benchmarks/amortized.py``) and its solve to the plain ``chol_solve``;
+10. tenant factor view — a rank-8 delta over the same shape:
+   ``tenant_factorization`` (kernel) against ``delta_factor`` (composed)
+   and 8 solves against the private-window oracle (5e-3,
+   ``benchmarks/serve_tenants.py``); an empty delta gives L bit for bit;
+11. streaming curvature — ``CurvatureCache`` at 512 × 100_000 over 6
+   solves of a drifting window against the card's plain ``chol_solve``
+   and the same trace on the CPU; ``StreamingGram`` over the 4 blocks;
+12. profiles of one dense flush, one (1024, 100_000) solve, one NGD step
+   and one update+downdate slide; per-kernel launches, times, plain and
+   library times, bounds.
 
 Any failed check raises, so the script exits non-zero. The last line is
 ``{"ok": true, "device": {...}}``.
@@ -50,11 +66,16 @@ import numpy as np  # noqa: E402
 
 from repro_torch.core import (BlockedScores, chol_factorize,  # noqa: E402
                               chol_solve)
+from repro_torch.curvature import (CurvatureCache,  # noqa: E402
+                                   StreamingCurvature, StreamingGram)
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.optim import (NaturalGradient,  # noqa: E402
                                params_from_arrays, per_sample_score_blocks)
 from repro_torch.serve import (OnlineAdaptation, SolveServer,  # noqa: E402
                                TokenBudgetBatcher, init_serve_state)
+from repro_torch.tenants import (augmented_window,  # noqa: E402
+                                 delta_factor, delta_fold, init_tenant_delta,
+                                 project_rows, tenant_factorization)
 
 N, M, LAM0 = 1024, 100_000, 1e-3          # configs/paper.py Table-1 row
 WIDTHS = (40_000, 30_000, 20_000, 10_000)
@@ -81,6 +102,15 @@ SOLVE_GATE = 1e-3       # tests/test_kernels.py:103-108 (rtol of the fused solve
 # S and g the kernel path is held to the float64 step at the plain path's
 # distance plus 1e-3; the CPU step is printed beside it.
 STEP_GATE = 1e-3
+# the rank-k update: the sweep of tests/test_kernels.py:52-64 and beyond
+CHOLUP_N = (16, 24, 64, 100, 1024, 2048)
+CHOLUP_K = (1, 3, 8, 16, 32)
+CHOLUP_TOL = 1e-5                       # tests/test_kernels.py:64
+SLIDES, SLIDE_K = 8, 16                 # benchmarks/amortized.py's slides
+FACTOR_GATE = 5e-3      # benchmarks/amortized.py:83, max-abs vs refactorized
+TENANT_RANK, TENANT_ROWS, TENANT_SOLVES = 8, 4, 8
+TENANT_GATE = 5e-3      # benchmarks/serve_tenants.py:99, vs private window
+STREAM_N, STREAM_STEPS, STREAM_EPS = 512, 6, 1e-4
 
 KERNELS = {
     # name: (source, TPU kernel it replaces)
@@ -104,6 +134,8 @@ KERNELS = {
                  "src/repro/kernels/cholesky.py:76"),
     "ngd_apply": ("src/repro_torch/kernels/csrc/ngd_apply.cu",
                   "src/repro/kernels/ngd_apply.py:41"),
+    "cholupdate": ("src/repro_torch/kernels/csrc/cholupdate.cu",
+                   "src/repro/kernels/cholupdate.py:68"),
 }
 
 
@@ -650,7 +682,251 @@ def trainer_path() -> tuple[dict, tuple]:
 
 
 # ---------------------------------------------------------------------------
-# 8. times and bounds at the main-path shape
+# 8. the rank-k update kernel
+# ---------------------------------------------------------------------------
+
+def cholupdate_inputs(n, k, sign, gen):
+    """(L, X) with L = chol(W), W = A·Aᵀ + n·I (+ X·Xᵀ for a downdate, so
+    that W − X·Xᵀ stays positive definite), as tests/test_kernels.py:52-60
+    builds them."""
+    A = torch.randn((n, n), generator=gen, device="cuda")
+    X = torch.randn((n, k), generator=gen, device="cuda")
+    W = A @ A.T + n * torch.eye(n, device="cuda")
+    if sign < 0:
+        W = W + X @ X.T
+    return torch.linalg.cholesky(W).contiguous(), X
+
+
+def recon_err(Lp, L, X, sign) -> float:
+    """‖L′L′ᵀ − (LLᵀ ± XXᵀ)‖_F / ‖LLᵀ ± XXᵀ‖_F in float64."""
+    L64, X64, P64 = L.double(), X.double(), Lp.double()
+    return rel2(P64 @ P64.T, L64 @ L64.T + sign * (X64 @ X64.T))
+
+
+def cholupdate_checks() -> dict:
+    """The sweep; returns {"cholupdate": abs error at (N, k = 16), update}."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    main_err = {}
+    for n in CHOLUP_N:
+        parts = []
+        for k in CHOLUP_K:
+            for sign in (1, -1):
+                L, X = cholupdate_inputs(n, k, sign, gen)
+                label = f"cholupdate n={n} k={k} sign={sign:+d}"
+
+                def fn(mode, X=X):
+                    return ops.cholupdate(L, X, sign=sign, mode=mode)
+                err, abs_err = check_case(label, fn, CHOLUP_TOL)
+                got = fn("kernel")
+                zero = ops.cholupdate(L, torch.zeros_like(X), sign=sign)
+                neg0 = fn("kernel", torch.cat([X, -torch.zeros_like(X[:, :1])],
+                                              dim=1))
+                torch.cuda.synchronize()
+                if not torch.equal(torch.triu(got, 1).view(torch.int32),
+                                   torch.zeros_like(got).view(torch.int32)):
+                    raise AssertionError(f"{label}: upper triangle not 0")
+                if not torch.equal(zero.view(torch.int32),
+                                   torch.tril(L).view(torch.int32)):
+                    raise AssertionError(f"{label}: zero X changed L")
+                if not torch.equal(neg0.view(torch.int32),
+                                   got.view(torch.int32)):
+                    raise AssertionError(f"{label}: a -0.0 column changed L'")
+                parts.append(f"k={k}{'+' if sign > 0 else '-'} {err:.1e}/"
+                             f"{recon_err(got, L, X, sign):.1e}/"
+                             f"{recon_err(fn('ref'), L, X, sign):.1e}")
+                if (n, k, sign) == (N, 16, 1):
+                    main_err["cholupdate"] = abs_err
+        print(f"  n={n}: rel err vs plain / ‖L′L′ᵀ − (LLᵀ ± XXᵀ)‖ kernel / "
+              "plain: " + ", ".join(parts), flush=True)
+    print("  repeats bit-identical; zero X returns L bit for bit; a -0.0 "
+          "column changes nothing; upper triangle exactly 0", flush=True)
+    return main_err
+
+
+# ---------------------------------------------------------------------------
+# 9. the maintained factorization: sliding the Table-1 window
+# ---------------------------------------------------------------------------
+
+def slide(S_t, t, gen):
+    """Replace SLIDE_K columns of the window S_t in place (the block
+    ``benchmarks/amortized.py`` retires at step t); returns the columns
+    (X_new, X_old) for one update + downdate."""
+    lo = (t * SLIDE_K) % (S_t.shape[1] - SLIDE_K)
+    X_old = S_t[:, lo:lo + SLIDE_K].clone()
+    X_new = torch.randn((S_t.shape[0], SLIDE_K), generator=gen,
+                        device="cuda") / S_t.shape[1] ** 0.5
+    S_t[:, lo:lo + SLIDE_K] = X_new
+    return X_new, X_old
+
+
+def maintained_path() -> dict:
+    """SLIDES slides of the window on the kernel, each held to the factor
+    and the solve of the refactorized window; returns the launch counts
+    of the slides."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    S_t, v = solve_inputs(N, M, gen)
+    fac = chol_factorize(S_t, LAM0)
+    counts = dict.fromkeys(ops.launch_counts(), 0)
+    for t in range(SLIDES):
+        X_new, X_old = slide(S_t, t, gen)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        fac = fac.update(X_new, S_new=S_t).downdate(X_old, S_new=S_t)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        for key, n_launch in ops.launch_counts().items():
+            counts[key] += n_launch
+        ref = chol_factorize(S_t, LAM0)
+        l_err = float((fac.L.double() - ref.L.double()).abs().max())
+        x, x_ref = fac.solve(v), ref.solve(v)
+        if x.shape != (M,) or not torch.isfinite(x).all():
+            raise AssertionError(f"slide {t}: solve not a finite (m,)")
+        s_err = rel(x, x_ref)
+        print(f"  slide {t}: {ms:.3f} ms (update + downdate, k = {SLIDE_K}); "
+              f"L vs refactorized {l_err:.2e} max-abs (gate {FACTOR_GATE:g}),"
+              f" solve vs plain chol_solve {s_err:.2e} (gate {SOLVE_GATE:g}),"
+              f" float64 residual {residual64(S_t, v, x, LAM0):.2e} (plain "
+              f"{residual64(S_t, v, x_ref, LAM0):.2e})", flush=True)
+        if not l_err < FACTOR_GATE:
+            raise AssertionError(f"slide {t}: factor drifted {l_err:.3e}")
+        if not s_err < SOLVE_GATE:
+            raise AssertionError(f"slide {t}: solve {s_err:.3e} from plain")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# 10. the tenant factor view
+# ---------------------------------------------------------------------------
+
+def tenant_path() -> dict:
+    """A rank-8 all-(+1) delta from two folds of 4 projected rows over the
+    Table-1 window; ``tenant_factorization`` (kernel) and its solves are
+    the path. Returns their launch counts."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    S, _ = solve_inputs(N, M, gen)
+    state = init_serve_state(S, LAM0)
+    delta = init_tenant_delta(N, TENANT_RANK, device="cuda")
+    for _ in range(TENANT_RANK // TENANT_ROWS):
+        rows = torch.randn((TENANT_ROWS, M), generator=gen,
+                           device="cuda") / M ** 0.5
+        delta, _ = delta_fold(delta, project_rows(state, rows))
+    vs = [torch.randn((M,), generator=gen, device="cuda")
+          for _ in range(TENANT_SOLVES)]
+    tenant_factorization(state, delta)   # warm-up: the host eigh's first call
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    fac = tenant_factorization(state, delta)
+    torch.cuda.synchronize()
+    view_ms = (time.perf_counter() - t0) * 1e3
+    xs = [fac.solve(v) for v in vs]
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    composed = delta_factor(delta, state.L, state.lam0)
+    lt_err = rel(fac.L, composed)
+    oracle = chol_factorize(augmented_window(state, delta), LAM0)
+    worst = max(rel2(x, oracle.solve(v)) for x, v in zip(xs, vs))
+    for x in xs:
+        if x.shape != (M,) or not torch.isfinite(x).all():
+            raise AssertionError("tenant solve not a finite (m,)")
+    empty = tenant_factorization(
+        state, init_tenant_delta(N, TENANT_RANK, device="cuda"))
+    torch.cuda.synchronize()
+    bitwise = torch.equal(empty.L.view(torch.int32),
+                          state.L.view(torch.int32))
+    print(f"  tenant view: {view_ms:.3f} ms (correction + update + "
+          f"downdate); L_t vs delta_factor (composed) {lt_err:.2e} (gate "
+          f"{CHOLUP_TOL:g}); {TENANT_SOLVES} solves vs the private-window "
+          f"oracle worst {worst:.2e} (gate {TENANT_GATE:g}); empty delta "
+          f"gives L bit for bit: {bitwise}", flush=True)
+    if not lt_err < CHOLUP_TOL:
+        raise AssertionError(f"tenant L_t {lt_err:.3e} from delta_factor")
+    if not worst < TENANT_GATE:
+        raise AssertionError(f"tenant solves {worst:.3e} from the oracle")
+    if not bitwise:
+        raise AssertionError("an empty delta changed the base factor")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# 11. the streaming curvature cache
+# ---------------------------------------------------------------------------
+
+def stream_data():
+    """Host data of the drifting window: S_t = S0 + eps·t·E for t < 4,
+    then an unrelated window S1 + eps·(t − 4)·E; one v per step."""
+    gen = torch.Generator().manual_seed(SEED + 9)
+    n, m = STREAM_N, M
+    S0, E, S1 = (torch.randn((n, m), generator=gen) / m ** 0.5
+                 for _ in range(3))
+    vs = [torch.randn((m,), generator=gen) for _ in range(STREAM_STEPS)]
+    return S0, E, S1, vs
+
+
+def stream_run(data, device) -> list:
+    """The trace through ``CurvatureCache(StreamingCurvature(512,
+    refresh_every=3, drift_tol=0.5))`` on ``device``; per step (x, hits,
+    refreshes, age, last residual, window)."""
+    S0, E, S1, vs = (t.to(device) if isinstance(t, torch.Tensor)
+                     else [v.to(device) for v in t] for t in data)
+    cache = CurvatureCache(StreamingCurvature(STREAM_N, refresh_every=3,
+                                              drift_tol=0.5, device=device))
+    out = []
+    for t in range(STREAM_STEPS):
+        S_t = S0 + (STREAM_EPS * t) * E if t < 4 \
+            else S1 + (STREAM_EPS * (t - 4)) * E
+        x = cache.solve(S_t, vs[t], LAM0)
+        st = cache.state
+        out.append((x, st.stats.hits, st.stats.refreshes, st.age,
+                    st.stats.last_residual, S_t))
+    return out
+
+
+def streaming_path() -> None:
+    data = stream_data()
+    t0 = time.perf_counter()
+    gpu = stream_run(data, "cuda")
+    torch.cuda.synchronize()
+    t_gpu = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = stream_run(data, "cpu")
+    t_cpu = time.perf_counter() - t0
+    refreshes = 0
+    for t, (g, c) in enumerate(zip(gpu, cpu)):
+        x, hits, refr, age, r, S_t = g
+        if x.shape != (M,) or not torch.isfinite(x).all():
+            raise AssertionError(f"stream step {t}: x not a finite (m,)")
+        line = (f"  stream step {t}: hits {hits}, refreshes {refr}, age "
+                f"{age}, drift residual {r:.3e} (CPU {c[4]:.3e}); x vs CPU "
+                f"{rel(x.cpu(), c[0]):.2e}")
+        if refr > refreshes:        # a refresh step: the exact solve
+            err = rel(x, chol_solve(S_t, data[3][t].cuda(), LAM0))
+            line += f", vs plain chol_solve {err:.2e} (gate {SOLVE_GATE:g})"
+            if not err < SOLVE_GATE:
+                raise AssertionError(f"stream step {t}: {err:.3e} from "
+                                     "the plain solve")
+        refreshes = refr
+        print(line, flush=True)
+        if (hits, refr, age) != c[1:4]:
+            raise AssertionError(f"stream step {t}: counters {hits, refr, age}"
+                                 f" differ from the CPU run's {c[1:4]}")
+    print(f"  streaming trace {t_gpu:.1f} s on the card, {t_cpu:.1f} s on "
+          "the CPU", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    S, _ = solve_inputs(N, M, gen)
+    sg = StreamingGram(N, device="cuda")
+    for b in BlockedScores.from_dense(S, WIDTHS).blocks:
+        sg = sg.update(b)
+    err = rel(sg.gram(), ops.gram(S, mode="ref"))
+    print(f"  StreamingGram over {WIDTHS}: vs plain gram {err:.2e} (gate "
+          f"{PASS_TOL:g}), {sg.m} columns folded", flush=True)
+    if not err < PASS_TOL or sg.m != M:
+        raise AssertionError(f"StreamingGram {err:.3e} from the plain gram")
+
+
+# ---------------------------------------------------------------------------
+# 12. times and bounds at the main-path shape
 # ---------------------------------------------------------------------------
 
 def time_ms(fn, iters: int = 20) -> float:
@@ -690,6 +966,10 @@ def bound(name, n, m, k, es, bw, flops, window_flops) -> tuple[float, str]:
                     window_flops),
         "cholesky": (2 * n * n * f4, n ** 3 / 3, flops),
         "ngd_apply": (win + n * f4 + m * es + m * f4, 2 * n * m, flops),
+        # the lower triangle read and written once, X read once; 6 flop a
+        # rotation of a lower element, k rotations each
+        "cholupdate": (n * (n + 1) * f4 + n * k * f4, 3 * n * (n + 1) * k,
+                       flops),
     }[name]
     t_b, t_o = nbytes / bw * 1e3, nops / peak * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
@@ -771,6 +1051,36 @@ def algorithm1_timings(dtype, bw: float, flops: float,
         f"{str(dtype)[6:]}")
 
 
+def cholupdate_timings(bw: float, flops: float) -> dict:
+    """The kernel at (N, 16) and (2048, 16) beside its plain version, the
+    refactorization chol(L·Lᵀ + X·Xᵀ) (context only: no PyTorch call
+    computes a rank-k update, so the library column is null) and the
+    bound; then one update + downdate slide of the Table-1 window."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    out = {}
+    for n in (N, 2048):
+        L, X = cholupdate_inputs(n, SLIDE_K, 1, gen)
+        refac = time_ms(lambda: torch.linalg.cholesky(L @ L.T + X @ X.T))
+        t = time_cases({"cholupdate": lambda mode: ops.cholupdate(
+            L, X, mode=mode)}, {}, lambda name: bound(
+                name, n, 0, SLIDE_K, 4, bw, flops, flops),
+            f"n={n} k={SLIDE_K}")
+        print(f"  n={n} k={SLIDE_K} refactorization chol(LLᵀ + XXᵀ): "
+              f"{refac:.4f} ms", flush=True)
+        if n == N:
+            out = t
+    S_t, _ = solve_inputs(N, M, gen)
+    fac = chol_factorize(S_t, LAM0)
+    X_new, X_old = slide(S_t, 0, gen)
+    ms = time_ms(lambda: fac.update(X_new, S_new=S_t).downdate(
+        X_old, S_new=S_t))
+    plain = time_ms(lambda: chol_factorize(S_t, LAM0))
+    print(f"  one slide at {N}x{M}, k = {SLIDE_K} (update + downdate, W and "
+          f"L): {ms:.4f} ms; refactorizing the window (plain gram + "
+          f"Cholesky) {plain:.4f} ms", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -814,6 +1124,23 @@ def main() -> int:
     if missing:
         raise AssertionError(f"Algorithm 1 kernels never launched: {missing}")
 
+    phase("cholupdate checks (kernel vs plain on the card, repeat "
+          "bit-identical)")
+    main_err.update(cholupdate_checks())
+    phase(f"maintained factorization, {SLIDES} slides of {SLIDE_K} columns "
+          f"at {N}x{M}, λ = {LAM0:g}")
+    paths["maintained factorization"] = maintained_path()
+    phase(f"tenant factor view, rank {TENANT_RANK} at {N}x{M}, "
+          f"λ₀ = {LAM0:g}")
+    paths["tenant view"] = tenant_path()
+    for label in ("maintained factorization", "tenant view"):
+        print(f"  launches on {label}: " + ", ".join(
+            f"{k}={v}" for k, v in paths[label].items() if v))
+        if paths[label]["cholupdate"] == 0:
+            raise AssertionError(f"cholupdate never launched on {label}")
+    phase(f"streaming curvature, {STREAM_N}x{M}, {STREAM_STEPS} solves")
+    streaming_path()
+
     phase("profiles")
     profile_flush(trace)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
@@ -822,13 +1149,19 @@ def main() -> int:
             lambda: ops.chol_solve_fused(S, v, LAM0))
     opt, st, p, Xd, yd = step_inputs
     profile(f"one NGD step (n = {MLP_N})", lambda: ngd_step(opt, st, p, Xd, yd))
-    del S, v
+    fac = chol_factorize(S, LAM0)
+    X_new, X_old = slide(S, 0, gen)
+    profile(f"one update + downdate slide at {N}x{M}, k = {SLIDE_K}",
+            lambda: fac.update(X_new, S_new=S).downdate(X_old, S_new=S))
+    del S, v, fac
 
     phase(f"kernel times at {N}x{M}")
     t32 = timings(torch.float32, PER_MB, bw, flops)
     timings(torch.bfloat16, PER_MB, bw, flops)
     t32.update(algorithm1_timings(torch.float32, bw, flops, flops))
     algorithm1_timings(torch.bfloat16, bw, flops, bf16_flops)
+    phase(f"cholupdate times, k = {SLIDE_K}")
+    t32.update(cholupdate_timings(bw, flops))
 
     lines = []
     for kname, (source, replaces) in KERNELS.items():

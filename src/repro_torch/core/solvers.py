@@ -229,13 +229,14 @@ class CholFactorization:
         return cols.to(self.S.dtype)
 
     def update(self, cols, *, S_new=None) -> "CholFactorization":
-        """Rank-k refresh at O(n²·k): W ← W + cols·cols†, L ← cholupdate.
-        ``cols`` (n, k) are appended to the held S unless ``S_new`` is
-        given."""
-        from repro_torch.curvature.update import chol_update
+        """Rank-k refresh at O(n²·k): W ← W + cols·cols†, L ← cholupdate
+        (``kernels.ops.cholupdate``: the rotation kernel for a real factor
+        on CUDA). ``cols`` (n, k) are appended to the held S unless
+        ``S_new`` is given."""
+        from repro_torch.kernels.ops import cholupdate
         cols = self._cols(cols)
         W = self.W + cols @ ct(cols, self.mode)
-        L = chol_update(self.L, cols)
+        L = cholupdate(self.L, cols, sign=+1)
         if S_new is None:
             S_new = BlockedScores(self.S.blocks + (cols,)) \
                 if is_blocked(self.S) else torch.cat([self.S, cols], dim=1)
@@ -243,11 +244,13 @@ class CholFactorization:
 
     def downdate(self, cols, *, S_new=None) -> "CholFactorization":
         """Rank-k removal: W ← W − cols·cols†, L ← choldowndate. S is kept
-        (stale-S approximation) unless ``S_new`` names the shrunken one."""
-        from repro_torch.curvature.update import chol_downdate
+        (stale-S approximation) unless ``S_new`` names the shrunken one.
+        Through ``kernels.ops.cholupdate`` as ``update``; no margin is
+        reported."""
+        from repro_torch.kernels.ops import cholupdate
         cols = self._cols(cols)
         W = self.W - cols @ ct(cols, self.mode)
-        L = chol_downdate(self.L, cols)
+        L = cholupdate(self.L, cols, sign=-1)
         return self._replace(S=self.S if S_new is None else S_new, W=W, L=L)
 
     def _prep_v(self, v):

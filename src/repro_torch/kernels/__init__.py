@@ -14,6 +14,11 @@ Algorithm 1 (the trainer path, ``ops.chol_solve_fused``):
 * ``cholesky``    — panel Cholesky, any n (``cholesky_pallas``).
 * ``ngd_apply``   — x = (v − Sᵀw)/λ (``ngd_apply_pallas``).
 
+The maintained factor (``CholFactorization.update``/``downdate``):
+
+* ``cholupdate``  — L' with L'L'ᵀ = LLᵀ ± XXᵀ, plane rotations in one
+  block (``cholupdate_pallas``).
+
 The serve path (``ops.serve_solve``, ``ops.fold_cols``):
 
 * ``sv_cross``    — U = S·V, split-m cross pass (``sv_cross_pallas``).
@@ -30,6 +35,7 @@ version accumulates in fp32 and returns fp32.
 from repro_torch.kernels.ops import (
     chol_solve_fused,
     cholesky,
+    cholupdate,
     fold_cols,
     gram,
     gram_acc,
@@ -44,6 +50,7 @@ from repro_torch.kernels.ops import (
     trisolve,
 )
 
-__all__ = ["chol_solve_fused", "cholesky", "fold_cols", "gram", "gram_acc",
-           "gram_blocks", "gram_sv", "launch_counts", "ngd_apply", "reset_launch_counts",
-           "serve_apply", "serve_solve", "sv_cross", "trisolve"]
+__all__ = ["chol_solve_fused", "cholesky", "cholupdate", "fold_cols", "gram",
+           "gram_acc", "gram_blocks", "gram_sv", "launch_counts", "ngd_apply",
+           "reset_launch_counts", "serve_apply", "serve_solve", "sv_cross",
+           "trisolve"]

@@ -27,19 +27,20 @@ from repro_torch.core.operator import (BlockedScores, as_blocked_vector,
                                        is_blocked, materialize)
 from repro_torch.core.solvers import real_scalar
 from repro_torch.kernels import cholesky as _chol
+from repro_torch.kernels import cholupdate as _cholup
 from repro_torch.kernels import fold as _fold
 from repro_torch.kernels import gram as _gram
 from repro_torch.kernels import ngd_apply as _apply
 from repro_torch.kernels import ref
 from repro_torch.kernels import serve_solve as _serve
 
-__all__ = ["chol_solve_fused", "cholesky", "fold_cols",
+__all__ = ["chol_solve_fused", "cholesky", "cholupdate", "fold_cols",
            "gram", "gram_acc", "gram_blocks", "gram_sv", "launch_counts", "ngd_apply",
            "reset_launch_counts", "serve_apply", "serve_solve", "sv_cross",
            "trisolve"]
 
 _COUNTERS = (_serve.LAUNCHES, _fold.LAUNCHES, _gram.LAUNCHES,
-             _chol.LAUNCHES, _apply.LAUNCHES)
+             _chol.LAUNCHES, _apply.LAUNCHES, _cholup.LAUNCHES)
 
 MODES = (None, "ref", "kernel")
 
@@ -229,6 +230,26 @@ def cholesky(W: torch.Tensor, *, mode: Optional[str] = None) -> torch.Tensor:
     if _use_kernel(mode, W):
         return _chol.cholesky_cuda(_f32(W).contiguous())
     return ref.cholesky_ref(W)
+
+
+def cholupdate(L: torch.Tensor, X: torch.Tensor, *, sign: int = 1,
+               mode: Optional[str] = None) -> torch.Tensor:
+    """Rank-k factor refresh: L' with L'·L'† = L·L† + sign·X·X†; X (n,) is
+    one column. A real CUDA factor takes the rotation kernel in fp32 at
+    every n up to ``cholupdate.MAX_N`` (the reference's n ≤ 1024 cap is
+    the TPU's VMEM; this kernel works in device memory), with r² clamped
+    at 1e-30; the plain version (the composed method, NaN for a downdate
+    that is not positive definite) runs on the CPU, under ``"ref"`` and
+    for complex factors."""
+    if X.ndim == 1:
+        X = X[:, None]
+    sign = 1 if sign > 0 else -1
+    if _use_kernel(mode, L, X):
+        if X.shape[1] == 0:
+            return torch.tril(_f32(L))
+        return _cholup.cholupdate_cuda(_f32(L).contiguous(),
+                                       _f32(X).contiguous(), sign)
+    return ref.cholupdate_ref(L, X, sign)
 
 
 def chol_solve_fused(S, v, damping, *, mode: Optional[str] = None):

@@ -1,10 +1,9 @@
 """Plain PyTorch versions of the kernels.
 
-Port of ``repro/kernels/ref.py`` (all but ``cholupdate_ref``, which comes
-with its kernel), plus ``trisolve_ref`` (the substitution that the TPU
-serve kernel runs in-kernel as ``_trisolve``). The CPU path of ``ops``,
-the oracle of the CUDA kernels on the card, and the reference the tests
-compare with. Accumulation is fp32 or wider whatever the storage dtype;
+Port of ``repro/kernels/ref.py``, plus ``trisolve_ref`` (the substitution
+that the TPU serve kernel runs in-kernel as ``_trisolve``). The CPU path
+of ``ops``, the oracle of the CUDA kernels on the card, and the reference
+the tests compare with. Accumulation is fp32 or wider whatever the storage dtype;
 fp32 matmuls run without TF32.
 """
 from __future__ import annotations
@@ -13,10 +12,12 @@ import torch
 
 from repro_torch.core.operator import acc_dtype
 from repro_torch.core.solvers import cholesky
+from repro_torch.curvature.update import chol_downdate, chol_update
 
 __all__ = ["gram_ref", "gram_sv_ref", "ngd_apply_ref", "cholesky_ref",
-           "chol_solve_ref", "sv_cross_ref", "serve_apply_ref",
-           "serve_solve_ref", "trisolve_ref", "fold_cols_ref"]
+           "cholupdate_ref", "chol_solve_ref", "sv_cross_ref",
+           "serve_apply_ref", "serve_solve_ref", "trisolve_ref",
+           "fold_cols_ref"]
 
 
 def _f32(t: torch.Tensor) -> torch.Tensor:
@@ -49,6 +50,18 @@ def cholesky_ref(W: torch.Tensor) -> torch.Tensor:
     """Lower L = chol(W) in fp32, row-major; NaN when W is not positive
     definite (the kernel clamps pivots at 1e-30 instead)."""
     return cholesky(_f32(W))
+
+
+def cholupdate_ref(L: torch.Tensor, X: torch.Tensor,
+                   sign: int = 1) -> torch.Tensor:
+    """L' with L'·L'† = L·L† + sign·X·X† by the composed method of
+    ``repro_torch.curvature.update`` (complex-aware), in L's and X's
+    promoted dtype, at least fp32. NaN where a downdate leaves a matrix
+    that is not positive definite (the kernel clamps r² at 1e-30)."""
+    fn = chol_update if sign > 0 else chol_downdate
+    tgt = torch.promote_types(torch.promote_types(L.dtype, X.dtype),
+                              torch.float32)
+    return fn(L.to(tgt), X.to(tgt))
 
 
 def chol_solve_ref(S: torch.Tensor, v: torch.Tensor, lam) -> torch.Tensor:

@@ -27,7 +27,9 @@ def test_port_imports_no_jax_and_no_repro():
         for need in ("kernels.ops", "kernels.gram", "kernels.cholesky",
                      "kernels.ngd_apply", "core.solvers", "core.pytree",
                      "core.device", "optim", "optim.ngd", "optim.scores",
-                     "optim.adamw", "optim.schedules", "serve.server"):
+                     "optim.adamw", "optim.schedules", "serve.server",
+                     "kernels.cholupdate", "curvature.streaming",
+                     "curvature.cache", "curvature.audit", "tenants.delta"):
             assert "repro_torch." + need in names, need
         print(len(names))
     """)
