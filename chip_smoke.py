@@ -41,9 +41,23 @@ Phases, each printing its own lines:
 11. streaming curvature — ``CurvatureCache`` at 512 × 100_000 over 6
    solves of a drifting window against the card's plain ``chol_solve``
    and the same trace on the CPU; ``StreamingGram`` over the 4 blocks;
-12. profiles of one dense flush, one (1024, 100_000) solve, one NGD step
-   and one update+downdate slide; per-kernel launches, times, plain and
-   library times, bounds.
+12. flash-attention checks — the kernel against its plain version over
+   (KH, group) ∈ {(2,1), (2,2), (1,4), (8,3)}, causal / window 64 /
+   bidirectional, T ∈ {16, 200, 256, 1024}, hd ∈ {32, 128}, fp32 and
+   bf16; repeats bit-identical, rows with no live key 0;
+13. LM serving — llama3.2-3b at published widths cut to 2 layers, bf16:
+   ``build_server`` and ``serve_main``'s loop (``serve_trace``) over 8
+   requests (window 8, seq 1024, 2 examples each, burst 3, 8 greedy
+   tokens, λ₀ = 1e-2, every fifth request at 4λ₀), then the same trace
+   with every kernel at its plain version; losses, x, the first
+   prefill's logits and the tokens gated; 2 flash-attention launches a
+   prefill;
+14. long prefill — all 28 layers of llama3.2-3b, one 32,768-token prompt
+   (configs/shapes.py prefill_32k, batch 32 → 1): 28 launches; layer 0's
+   attention at that shape against the plain version;
+15. profiles of one dense flush, one (1024, 100_000) solve, one NGD step,
+   one update+downdate slide, one LM serving round and the long prefill;
+   per-kernel launches, times, plain and library times, bounds.
 
 Any failed check raises, so the script exits non-zero. The last line is
 ``{"ok": true, "device": {...}}``.
@@ -52,27 +66,40 @@ Any failed check raises, so the script exits non-zero. The last line is
 """
 from __future__ import annotations
 
+import gc
 import json
+import os
 import subprocess
 import sys
 import time
 from pathlib import Path
 
-import torch
+# The LM phase holds a 19 GB window, its fold's 19 GB copy and the score
+# pass's large temporaries in turn: growable segments keep the caching
+# allocator from fragmenting the card between them.
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+
+import torch  # noqa: E402
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 import numpy as np  # noqa: E402
 
+from repro_torch import configs  # noqa: E402
 from repro_torch.core import (BlockedScores, chol_factorize,  # noqa: E402
                               chol_solve)
 from repro_torch.curvature import (CurvatureCache,  # noqa: E402
                                    StreamingCurvature, StreamingGram)
 from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.launch.train import make_prefill  # noqa: E402
+from repro_torch.launch.trainer import build_server  # noqa: E402
+from repro_torch.models import get_api  # noqa: E402
+from repro_torch.models import layers as model_layers  # noqa: E402
 from repro_torch.optim import (NaturalGradient,  # noqa: E402
                                params_from_arrays, per_sample_score_blocks)
 from repro_torch.serve import (OnlineAdaptation, SolveServer,  # noqa: E402
                                TokenBudgetBatcher, init_serve_state)
+from repro_torch.serve.main import serve_trace  # noqa: E402
 from repro_torch.tenants import (augmented_window,  # noqa: E402
                                  delta_factor, delta_fold, init_tenant_delta,
                                  project_rows, tenant_factorization)
@@ -111,6 +138,38 @@ FACTOR_GATE = 5e-3      # benchmarks/amortized.py:83, max-abs vs refactorized
 TENANT_RANK, TENANT_ROWS, TENANT_SOLVES = 8, 4, 8
 TENANT_GATE = 5e-3      # benchmarks/serve_tenants.py:99, vs private window
 STREAM_N, STREAM_STEPS, STREAM_EPS = 512, 6, 1e-4
+# flash attention: the sweep of tests/test_kernels.py:116-146 and beyond
+FLASH_GQA = ((2, 1), (2, 2), (1, 4), (8, 3))          # (KH, group)
+FLASH_MASKS = ((True, None), (True, 64), (False, None))  # (causal, window)
+FLASH_T = (16, 200, 256, 1024)
+FLASH_HD = (32, 128)
+# fp32: tests/test_kernels.py:129's 2e-4. bf16 outputs are rounded to bf16
+# after fp32 sums taken in another order: one bf16 ulp of the largest
+# output is at most 2^-7 of it, so 1e-2 of max |o|.
+FLASH_TOL = {torch.float32: 2e-4, torch.bfloat16: 1e-2}
+# The LM serving front: llama3.2-3b at its published widths, depth cut to
+# 2 layers (the n × m score window of all 28 layers, 51 GB in bf16, does
+# not fit one card), bf16 as published; the CLI's defaults otherwise
+# (python -m repro_torch.serve --full --n-layers 2 --seq 1024
+# --decode-tokens 8 --requests 8).
+LM_ARCH, LM_LAYERS = "llama3.2-3b", 2
+LM_WINDOW, LM_SEQ, LM_ADAPT, LM_REQUESTS, LM_BURST, LM_NEW = 8, 1024, 2, 8, 3, 8
+LM_LAM0, LM_LR = 1e-2, 0.05
+LM_MAX_TOKENS, LM_MAX_REQUESTS, LM_REFRESH, LM_SCORE_CHUNK = 64, 4, 16, 2
+# Kernel route against the plain route of the same trace. Losses: the
+# routes' params part only by bf16 roundings flipped by solves that agree
+# to ~1e-6, so 1e-3 relative. Solutions x: benchmarks/serve.py's 5e-3,
+# for the first burst's requests, whose inputs are the same in both runs
+# (scored before any update; their solves differ only by the folds'
+# kernel). A later request's v is the bf16 gradient at params that the
+# two runs have rounded differently, so its x is printed, not gated.
+# Logits (bf16 matmuls through two layers whose attention outputs may
+# differ by one bf16 ulp): 2e-2 of the largest |logit|, ≈ 2.5 bf16 ulps.
+# A decoded token may flip only where the two runs' top logits are
+# closer than twice that tolerance.
+LM_LOSS_GATE, LM_X_GATE, LM_LOGIT_GATE = 1e-3, 5e-3, 2e-2
+# configs/shapes.py prefill_32k, batch cut from 32 to 1: the whole model
+LONG_T = 32_768
 
 KERNELS = {
     # name: (source, TPU kernel it replaces)
@@ -136,6 +195,8 @@ KERNELS = {
                   "src/repro/kernels/ngd_apply.py:41"),
     "cholupdate": ("src/repro_torch/kernels/csrc/cholupdate.cu",
                    "src/repro/kernels/cholupdate.py:68"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:101"),
 }
 
 
@@ -371,7 +432,7 @@ def profile(label: str, fn, prepare=None) -> None:
     total = sum(busy.values())
     print(f"  {label}: {wall:.3f} ms wall, device busy {total:.3f} ms "
           f"({100 * total / wall:.1f} %)")
-    for key, ms in sorted(busy.items(), key=lambda kv: -kv[1])[:10]:
+    for key, ms in sorted(busy.items(), key=lambda kv: -kv[1])[:14]:
         print(f"    {ms:8.3f} ms  {key[:90]}")
 
 
@@ -926,11 +987,300 @@ def streaming_path() -> None:
 
 
 # ---------------------------------------------------------------------------
+# 12. flash attention: kernel checks
+# ---------------------------------------------------------------------------
+
+def attention_inputs(B, T, KH, g, hd, dtype, gen):
+    """q (B, T, KH·g, hd), k and v (B, T, KH, hd), N(0, 1), on the card."""
+    def draw(heads):
+        return torch.randn((B, T, heads, hd), generator=gen,
+                           device="cuda").to(dtype)
+    return draw(KH * g), draw(KH), draw(KH)
+
+
+def flash_checks() -> dict:
+    """The sweep: kernel twice (bit-identical) against the plain version,
+    fp32 and bf16; returns {"flash_attention": abs error at the serving
+    trace's layer shape (T = 1024, 24/8 heads, hd 128, bf16, causal)}."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    main_err = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for hd in FLASH_HD:
+            worst = 0.0
+            for KH, g in FLASH_GQA:
+                for T in FLASH_T:
+                    q, k, v = attention_inputs(2, T, KH, g, hd, dtype, gen)
+                    for causal, window in FLASH_MASKS:
+                        def fn(mode):
+                            return ops.flash_attention(q, k, v, causal=causal,
+                                                       window=window, mode=mode)
+                        label = (f"flash_attention {str(dtype)[6:]} hd={hd} "
+                                 f"KH={KH} g={g} T={T} causal={causal} "
+                                 f"window={window}")
+                        err, abs_err = check_case(label, fn, FLASH_TOL[dtype])
+                        out = fn("kernel")
+                        if out.shape != q.shape or out.dtype != dtype \
+                                or not torch.isfinite(out).all():
+                            raise AssertionError(f"{label}: not a finite "
+                                                 f"{tuple(q.shape)} {dtype}")
+                        worst = max(worst, err)
+                        if (dtype, hd, KH, g, T, causal, window) == (
+                                torch.bfloat16, 128, 8, 3, 1024, True, None):
+                            main_err["flash_attention"] = abs_err
+            print(f"  {str(dtype)[6:]} hd={hd}: worst rel err {worst:.2e} over "
+                  f"(KH, group) {FLASH_GQA}, T {FLASH_T}, masks "
+                  f"{FLASH_MASKS} (gate {FLASH_TOL[dtype]:g})", flush=True)
+    # a fully masked row (q beyond every key of its window) gives 0, not NaN
+    q, k, v = attention_inputs(1, 300, 2, 2, 128, torch.bfloat16, gen)
+    short = ops.flash_attention(q, k[:, :40], v[:, :40], causal=True, window=16,
+                                mode="kernel")
+    torch.cuda.synchronize()
+    if not (torch.isfinite(short).all() and short[:, 60:].eq(0).all()):
+        raise AssertionError("flash_attention: fully masked rows not 0")
+    print("  repeats bit-identical; rows with no live key give 0", flush=True)
+    return main_err
+
+
+# ---------------------------------------------------------------------------
+# 13. the LM serving front
+# ---------------------------------------------------------------------------
+
+def require_launches(label: str, counts: dict, name: str,
+                     expect=None) -> None:
+    """Raise unless ``name`` launched ``expect`` times (None: at least once)."""
+    if (counts[name] == 0) if expect is None else (counts[name] != expect):
+        raise AssertionError(f"{label}: {name} launched {counts[name]} "
+                             f"times, expected {expect or 'some'}")
+
+
+def gram64(S, chunk: int = 1 << 26) -> torch.Tensor:
+    """S·Sᵀ in float64, summed over column chunks of S (4 GB at a time)."""
+    W = torch.zeros((S.shape[0],) * 2, dtype=torch.float64, device=S.device)
+    for j in range(0, S.shape[1], chunk):
+        b = S[:, j:j + chunk].double()
+        W += b @ b.T
+    return W
+
+
+def lm_trace(cfg, mode, *, device="cuda", against=None, profile_round=False):
+    """Build the server and serve the trace with every kernel wrapper at
+    ``mode`` (None: kernels on the card; "ref": the plain versions).
+    ``against``: the kernel run's result; each solution x is then held
+    to it as it comes. Returns the records, x of each request (on the
+    host, kernel run only), the launch counts and the server summary."""
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    xs, x_err = {}, {}
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    def on_result(rec, res):
+        if against is None:
+            xs[rec["request"]] = res.x.float().cpu()
+        else:
+            x = res.x.float().cpu()
+            x_err[rec["request"]] = (rel(x, against["xs"][rec["request"]]),
+                                     rel2(x, against["xs"][rec["request"]]))
+        if res.x.shape != (m,) or not torch.isfinite(res.x).all():
+            raise AssertionError(f"request {rec['request']}: x not a finite "
+                                 f"({m},)")
+
+    sync()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with ops.default_mode(mode):
+        server, h = build_server(
+            cfg, window=LM_WINDOW, seq=LM_SEQ, damping=LM_LAM0,
+            max_tokens=LM_MAX_TOKENS, max_requests=LM_MAX_REQUESTS,
+            refresh_every=LM_REFRESH, score_chunk=LM_SCORE_CHUNK, seed=SEED,
+            device=device)
+        sync()
+        build_s = time.perf_counter() - t0
+        m = server.state.S.shape[1]
+        t0 = time.perf_counter()
+        out = serve_trace(server, h, requests=LM_REQUESTS, window=LM_WINDOW,
+                          adapt_examples=LM_ADAPT, seq=LM_SEQ,
+                          decode_tokens=LM_NEW, damping=LM_LAM0, lr=LM_LR,
+                          burst=LM_BURST, seed=SEED, keep_logits=True,
+                          on_result=on_result,
+                          log=lambda line: print("    " + line, flush=True))
+        sync()
+        trace_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    summary = server.metrics.summary()
+    stats = server.stats
+    print(f"  [{mode or 'kernels'}] m = {m:,} parameters, window "
+          f"{LM_WINDOW}x{m} {str(server.state.S.dtype)[6:]} "
+          f"({server.state.S.numel() * server.state.S.element_size() / 1e9:.2f}"
+          f" GB); build {build_s:.1f} s, trace {trace_s:.1f} s; solve p50 "
+          f"{summary['p50_ms']:.1f} ms, p99 {summary['p99_ms']:.1f} ms, "
+          f"{summary['rps']:.2f} req/s; adapted {stats.adapted} rows, "
+          f"{stats.refreshes} refreshes over {stats.microbatches} "
+          f"microbatches; launches "
+          + ", ".join(f"{k}={v}" for k, v in counts.items() if v), flush=True)
+    recs = out["records"]
+    for key in ("score_ms", "flush_ms", "apply_ms", "decode_ms"):
+        vals = [rec[key] for rec in recs]
+        print(f"    per request {key}: mean {np.mean(vals):.1f}, min "
+              f"{min(vals):.1f}, max {max(vals):.1f}", flush=True)
+    if against is None:
+        # the folds (fold_cols on the card) kept W = S·Sᵀ of the window: held
+        # to a float64 Gram summed over column chunks, since one fp32 sum
+        # over m = 6e8 columns (the plain Gram's) is itself ~1e-4 off
+        st = server.state
+        W64 = gram64(st.S)
+        w_err = rel(st.W, W64)
+        with ops.default_mode("ref"):
+            plain_err = rel(ops.gram(st.S), W64)
+        print(f"    folded W vs the float64 S·Sᵀ of the final window "
+              f"{w_err:.2e} (gate {PASS_TOL:g}; the plain fp32 Gram "
+              f"{plain_err:.2e})", flush=True)
+        if not w_err < PASS_TOL:
+            raise AssertionError(f"LM serving: folded W {w_err:.3e} from "
+                                 "the window's Gram")
+        del st, W64
+    if profile_round:
+        gc.collect()
+        torch.cuda.empty_cache()
+        # one request a round: a burst's three pending requests and their
+        # solutions leave too little of the card for the fold's copy
+        # beside the profiler
+        profile("one serving round (score pass, solve + fold, update, "
+                f"prefill + {LM_NEW - 1} decode steps)", lambda: serve_trace(
+                    server, h, requests=1, window=LM_WINDOW,
+                    adapt_examples=LM_ADAPT, seq=LM_SEQ, decode_tokens=LM_NEW,
+                    damping=LM_LAM0, lr=LM_LR, burst=1, seed=SEED,
+                    log=lambda line: None))
+    del server, h
+    return {"records": recs, "xs": xs, "x_err": x_err, "counts": counts,
+            "summary": summary, "m": m}
+
+
+def token_agreement(k_rec, p_rec) -> str:
+    """'equal', or the step of the first flip and the two runs' top-2
+    margins there; raises if a margin is wider than twice the logit gate."""
+    if k_rec["tokens"] == p_rec["tokens"]:
+        return "equal"
+    step = next(i for i, (a, b) in enumerate(zip(k_rec["tokens"],
+                                                  p_rec["tokens"])) if a != b)
+    tol = LM_LOGIT_GATE * float(p_rec["logits"][step].abs().max())
+    a, b = k_rec["tokens"][step], p_rec["tokens"][step]
+    margins = (float(k_rec["logits"][step][a] - k_rec["logits"][step][b]),
+               float(p_rec["logits"][step][b] - p_rec["logits"][step][a]))
+    if max(margins) > 2 * tol:
+        raise AssertionError(f"request {k_rec['request']}: token {step} "
+                             f"flipped with margins {margins} > 2 x {tol:.3g}")
+    return f"flip at step {step}, margins {margins[0]:.3g}/{margins[1]:.3g}"
+
+
+def lm_serving_path(cfg, device="cuda") -> dict:
+    """The trace on the kernels, then on the plain versions; gates losses,
+    each x, the first prefill's last-position logits and the tokens."""
+    kern = lm_trace(cfg, None, device=device, profile_round=device == "cuda")
+    require_launches("LM serving", kern["counts"], "flash_attention",
+                     cfg.n_layers * LM_REQUESTS)
+    require_launches("LM serving", kern["counts"], "fold_cols")
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    plain = lm_trace(cfg, "ref", device=device, against=kern)
+    require_launches("LM serving, plain route", plain["counts"],
+                     "flash_attention", 0)
+    by_req = {rec["request"]: rec for rec in plain["records"]}
+    worst_loss = 0.0
+    for rec in kern["records"]:
+        p_rec = by_req[rec["request"]]
+        loss_err = abs(rec["loss"] - p_rec["loss"]) / abs(p_rec["loss"])
+        worst_loss = max(worst_loss, loss_err)
+        x_max, x_l2 = plain["x_err"][rec["request"]]
+        print(f"  request {rec['request']}: loss {rec['loss']:.5f} (plain "
+              f"{p_rec['loss']:.5f}), x vs plain {x_max:.2e} max-abs, "
+              f"{x_l2:.2e} in 2-norm"
+              f"{'' if rec['request'] < LM_BURST else ' (inputs differ)'}, "
+              f"tokens {token_agreement(rec, p_rec)}", flush=True)
+        if not np.isfinite(rec["loss"]) or not loss_err < LM_LOSS_GATE:
+            raise AssertionError(f"request {rec['request']}: loss "
+                                 f"{rec['loss']} vs plain {p_rec['loss']}")
+    worst_x = max(plain["x_err"][r][0] for r in range(LM_BURST))
+    first_k, first_p = kern["records"][0]["logits"][0], \
+        plain["records"][0]["logits"][0]
+    logit_err = rel(first_k, first_p)
+    print(f"  kernels vs plain route: worst loss {worst_loss:.2e} (gate "
+          f"{LM_LOSS_GATE:g}), worst x of the first burst {worst_x:.2e} "
+          f"(gate {LM_X_GATE:g}), "
+          f"first prefill's last-position logits {logit_err:.2e} (gate "
+          f"{LM_LOGIT_GATE:g}); plain-route solve p50 "
+          f"{plain['summary']['p50_ms']:.1f} ms", flush=True)
+    if not worst_x < LM_X_GATE:
+        raise AssertionError(f"LM serving: x {worst_x:.3e} from plain")
+    if not (torch.isfinite(first_k).all() and logit_err < LM_LOGIT_GATE):
+        raise AssertionError(f"LM serving: logits {logit_err:.3e} from plain")
+    return kern
+
+
+def long_prefill(cfg, T, device="cuda") -> dict:
+    """The whole model's prefill of one T-token prompt through the serve
+    front's prefill step, then one layer's attention at that shape held
+    against the plain version."""
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    api = get_api(cfg)
+    gen = torch.Generator(device=device).manual_seed(SEED + 13)
+    t0 = time.perf_counter()
+    params = api.init_params(gen)
+    tokens = torch.randint(3, cfg.vocab, (1, T), generator=gen, device=device)
+    prefill = make_prefill(api)
+    sync()
+    init_s = time.perf_counter() - t0
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, cache, idx = prefill(params, {"tokens": tokens})
+    sync()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = ops.launch_counts()
+    require_launches("long prefill", counts, "flash_attention", cfg.n_layers)
+    if logits.shape != (1, 1, cfg.padded_vocab) or idx != T \
+            or not torch.isfinite(logits).all():
+        raise AssertionError("long prefill: logits not a finite (1, 1, V)")
+    kv = cache[0]["k"]
+    print(f"  {cfg.n_layers} layers, T = {T}: prefill {ms:.1f} ms (params "
+          f"{sum(t.numel() for t in torch.utils._pytree.tree_leaves(params)) / 1e9:.3f}"
+          f" G, drawn in {init_s:.1f} s); cache k {tuple(kv.shape)} "
+          f"{str(kv.dtype)[6:]}; launches "
+          + ", ".join(f"{k}={v}" for k, v in counts.items() if v), flush=True)
+    del cache
+    # layer 0's attention at this shape: its own q, k, v (llama: RMSNorm)
+    p0 = {key: val[0] for key, val in params["blocks"][0].items()
+          if isinstance(val, torch.Tensor)}
+    with torch.no_grad():
+        x = model_layers.rms_norm(params["embed"][tokens.long()],
+                                  params["blocks"][0]["norm"]["g"][0],
+                                  eps=cfg.norm_eps)
+        pos = torch.arange(T, device=device)[None]
+        q, k, v = model_layers.attn_qkv(x, p0, cfg, positions=pos)
+        got = ops.flash_attention(q, k, v, causal=True)
+        again = ops.flash_attention(q, k, v, causal=True)
+        plain = ops.flash_attention(q, k, v, causal=True, mode="ref")
+    sync()
+    err = rel(got, plain)
+    print(f"  layer 0 attention at (1, {T}, {cfg.n_heads}/{cfg.n_kv_heads}, "
+          f"{cfg.head_dim}) {str(q.dtype)[6:]}: kernel vs plain {err:.2e} "
+          f"(gate {FLASH_TOL[q.dtype]:g}), repeat bit-identical "
+          f"{torch.equal(got, again)}", flush=True)
+    if not (err < FLASH_TOL[q.dtype] and torch.equal(got, again)):
+        raise AssertionError(f"long prefill: layer 0 attention {err:.3e}")
+    if device == "cuda":
+        profile(f"one {cfg.n_layers}-layer prefill of {T} tokens",
+                lambda: prefill(params, {"tokens": tokens}))
+    return {"counts": counts, "ms": ms}
+
+
+# ---------------------------------------------------------------------------
 # 12. times and bounds at the main-path shape
 # ---------------------------------------------------------------------------
 
-def time_ms(fn, iters: int = 20) -> float:
-    for _ in range(3):
+def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -975,16 +1325,18 @@ def bound(name, n, m, k, es, bw, flops, window_flops) -> tuple[float, str]:
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
-def time_cases(cases: dict, library: dict, bound_of, label: str) -> dict:
+def time_cases(cases: dict, library: dict, bound_of, label: str,
+               **timing) -> dict:
     """Plain, kernel, kernel, plain (in turns, one call), then the library
-    call; returns the JSON fields of each kernel."""
+    call; returns the JSON fields of each kernel. ``timing``: ``time_ms``'s
+    iters and warm-up."""
     out = {}
     for name, fn in cases.items():
-        p1 = time_ms(lambda: fn("ref"))
-        k1 = time_ms(lambda: fn("kernel"))
-        k2 = time_ms(lambda: fn("kernel"))
-        p2 = time_ms(lambda: fn("ref"))
-        lib = time_ms(library[name]) if name in library else None
+        p1 = time_ms(lambda: fn("ref"), **timing)
+        k1 = time_ms(lambda: fn("kernel"), **timing)
+        k2 = time_ms(lambda: fn("kernel"), **timing)
+        p2 = time_ms(lambda: fn("ref"), **timing)
+        lib = time_ms(library[name], **timing) if name in library else None
         b, by = bound_of(name)
         out[name] = {"ms": min(k1, k2), "plain_ms": min(p1, p2),
                      "library_ms": lib, "bound_ms": b, "bound_by": by}
@@ -1081,6 +1433,39 @@ def cholupdate_timings(bw: float, flops: float) -> dict:
     return out
 
 
+def flash_bound(T, H, KH, hd, es, causal, bw, peak) -> tuple[float, str]:
+    """Least time of one attention forward: q, k, v read and o written
+    once; 4·hd flop per live (q, k) pair — T(T+1)/2 pairs causal, T²
+    bidirectional — at the operands' type's peak."""
+    pairs = T * (T + 1) // 2 if causal else T * T
+    t_b = (2 * T * H + 2 * T * KH) * hd * es / bw * 1e3
+    t_o = 4 * hd * H * pairs / peak * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def flash_timings(bw: float, bf16_flops: float) -> dict:
+    """Row 11 at llama3.2-3b's layer shape (24 query / 8 KV heads, hd
+    128, bf16, causal): T = 1024 (the serving trace's prefill) and
+    T = 32,768 (the long prefill, returned for the JSON line). The library
+    call is scaled_dot_product_attention with the KV heads expanded to 24
+    outside the timed call; the port never calls it."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    out = {}
+    for T in (1024, LONG_T):
+        q, k, v = attention_inputs(1, T, 8, 3, 128, torch.bfloat16, gen)
+        qt = q.transpose(1, 2)
+        kt, vt = (t.repeat_interleave(3, dim=2).transpose(1, 2) for t in (k, v))
+        timing = {"iters": 2, "warmup": 1} if T == LONG_T else {}
+        out = time_cases(
+            {"flash_attention": lambda mode: ops.flash_attention(
+                q, k, v, causal=True, mode=mode)},
+            {"flash_attention": lambda: torch.nn.functional
+             .scaled_dot_product_attention(qt, kt, vt, is_causal=True)},
+            lambda name: flash_bound(T, 24, 8, 128, 2, True, bw, bf16_flops),
+            f"(1, {T}, 24/8, 128) bf16 causal", **timing)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -1141,6 +1526,26 @@ def main() -> int:
     phase(f"streaming curvature, {STREAM_N}x{M}, {STREAM_STEPS} solves")
     streaming_path()
 
+    phase("flash-attention checks (kernel vs plain on the card, repeat "
+          "bit-identical)")
+    main_err.update(flash_checks())
+    lm_cfg = configs.get_config(LM_ARCH).scaled(n_layers=LM_LAYERS)
+    phase(f"LM serving, {LM_ARCH} at published widths, {LM_LAYERS} layers, "
+          f"window {LM_WINDOW}, seq {LM_SEQ}, {LM_REQUESTS} requests, burst "
+          f"{LM_BURST}, {LM_NEW} decoded tokens, λ₀ = {LM_LAM0:g}")
+    paths["LM serving"] = lm_serving_path(lm_cfg)["counts"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase(f"long prefill, {LM_ARCH}, all 28 layers, bf16, one prompt of "
+          f"{LONG_T} tokens")
+    paths["long prefill"] = long_prefill(configs.get_config(LM_ARCH),
+                                         LONG_T)["counts"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    for label in ("LM serving", "long prefill"):
+        print(f"  launches on {label}: " + ", ".join(
+            f"{k}={v}" for k, v in paths[label].items() if v))
+
     phase("profiles")
     profile_flush(trace)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
@@ -1162,6 +1567,8 @@ def main() -> int:
     algorithm1_timings(torch.bfloat16, bw, flops, bf16_flops)
     phase(f"cholupdate times, k = {SLIDE_K}")
     t32.update(cholupdate_timings(bw, flops))
+    phase("flash-attention times (llama3.2-3b layer shape)")
+    t32.update(flash_timings(bw, bf16_flops))
 
     lines = []
     for kname, (source, replaces) in KERNELS.items():

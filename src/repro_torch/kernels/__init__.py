@@ -29,13 +29,21 @@ The serve path (``ops.serve_solve``, ``ops.fold_cols``):
   stream (``serve_solve_pallas``).
 * ``fold_cols``   — (S·rowsᵀ, rows·rowsᵀ) in one pass (``fold_cols_pallas``).
 
-The window may be stored in fp32 or bf16; every kernel and every plain
-version accumulates in fp32 and returns fp32.
+The LM's prefill (``models.lm.prefill``):
+
+* ``flash_attention`` — causal / windowed GQA attention forward, online
+  softmax over KV tiles (``flash_attention_pallas``).
+
+The window may be stored in fp32 or bf16; every window kernel and plain
+version accumulates in fp32 and returns fp32. Flash attention takes fp32
+or bf16 q, k, v, keeps its statistics in fp32 and returns q's dtype.
 """
 from repro_torch.kernels.ops import (
     chol_solve_fused,
     cholesky,
     cholupdate,
+    default_mode,
+    flash_attention,
     fold_cols,
     gram,
     gram_acc,
@@ -50,7 +58,7 @@ from repro_torch.kernels.ops import (
     trisolve,
 )
 
-__all__ = ["chol_solve_fused", "cholesky", "cholupdate", "fold_cols", "gram",
-           "gram_acc", "gram_blocks", "gram_sv", "launch_counts", "ngd_apply",
+__all__ = ["chol_solve_fused", "cholesky", "cholupdate", "default_mode",
+           "flash_attention", "fold_cols", "gram", "gram_acc", "gram_blocks", "gram_sv", "launch_counts", "ngd_apply",
            "reset_launch_counts", "serve_apply", "serve_solve", "sv_cross",
            "trisolve"]

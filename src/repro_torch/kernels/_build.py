@@ -28,7 +28,7 @@ __all__ = ["BUILD_ROOT", "SOURCES", "build", "call", "check", "library",
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("serve_solve", "fold", "gram", "cholesky", "ngd_apply",
-           "cholupdate")
+           "cholupdate", "flash_attention")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")

@@ -16,9 +16,15 @@ build, launch, or accept its operands raises.
 
 Unlike the JAX wrappers these never pad the window to a tile multiple:
 the kernels mask the ragged edge themselves, so no request copies S.
+
+``default_mode(mode)`` is a context in which calls that pass no ``mode``
+take ``mode``: ``with default_mode("ref"):`` runs a whole path (a server,
+a model) on the plain versions, the card's oracle of the kernel path.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import Optional
 
 import torch
@@ -28,21 +34,38 @@ from repro_torch.core.operator import (BlockedScores, as_blocked_vector,
 from repro_torch.core.solvers import real_scalar
 from repro_torch.kernels import cholesky as _chol
 from repro_torch.kernels import cholupdate as _cholup
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import fold as _fold
 from repro_torch.kernels import gram as _gram
 from repro_torch.kernels import ngd_apply as _apply
 from repro_torch.kernels import ref
 from repro_torch.kernels import serve_solve as _serve
 
-__all__ = ["chol_solve_fused", "cholesky", "cholupdate", "fold_cols",
-           "gram", "gram_acc", "gram_blocks", "gram_sv", "launch_counts", "ngd_apply",
-           "reset_launch_counts", "serve_apply", "serve_solve", "sv_cross",
-           "trisolve"]
+__all__ = ["chol_solve_fused", "cholesky", "cholupdate", "default_mode",
+           "flash_attention", "fold_cols", "gram", "gram_acc", "gram_blocks",
+           "gram_sv", "launch_counts", "ngd_apply", "reset_launch_counts",
+           "serve_apply", "serve_solve", "sv_cross", "trisolve"]
 
 _COUNTERS = (_serve.LAUNCHES, _fold.LAUNCHES, _gram.LAUNCHES,
-             _chol.LAUNCHES, _apply.LAUNCHES, _cholup.LAUNCHES)
+             _chol.LAUNCHES, _apply.LAUNCHES, _cholup.LAUNCHES,
+             _flash.LAUNCHES)
 
 MODES = (None, "ref", "kernel")
+_DEFAULT_MODE: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_kernel_mode", default=None)
+
+
+@contextlib.contextmanager
+def default_mode(mode: Optional[str]):
+    """Inside the block, every wrapper called without ``mode`` takes
+    ``mode`` (``"ref"``: the plain versions on any device)."""
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    token = _DEFAULT_MODE.set(mode)
+    try:
+        yield
+    finally:
+        _DEFAULT_MODE.reset(token)
 
 
 def _any_complex(*tensors) -> bool:
@@ -50,6 +73,8 @@ def _any_complex(*tensors) -> bool:
 
 
 def _use_kernel(mode: Optional[str], *tensors) -> bool:
+    if mode is None:
+        mode = _DEFAULT_MODE.get()
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     if mode == "ref" or _any_complex(*tensors):
@@ -286,3 +311,28 @@ def _chol_solve_fused_blocked(S, v, damping, *, mode: Optional[str] = None):
     x = tuple(ngd_apply(b, w, vb, lam, mode=mode)
               for b, vb in zip(S.blocks, v_blocks))
     return BlockedScores.concat(x) if was_flat else x
+
+
+# ---------------------------------------------------------------------------
+# attention: the prefill path of the LM
+# ---------------------------------------------------------------------------
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    scale: Optional[float] = None, mode: Optional[str] = None,
+                    bq: int = 128, bk: int = 128) -> torch.Tensor:
+    """Causal / sliding-window / bidirectional GQA attention forward in the
+    model layout: q (B, Tq, H, hd), k and v (B, Tk, KH, hd), H % KH == 0;
+    returns (B, Tq, H, hd) in q's dtype. p is rounded to v's dtype before
+    P·V, as the TPU kernel does. ``bq``/``bk`` are the reference's TPU
+    tile sizes, taken for signature parity: the CUDA kernel's tiles are
+    fixed (64 × 64), and the plain version uses the kernel's KV tile.
+    Ragged Tq and Tk are masked, never padded (the reference asserts
+    Tk % bk == 0)."""
+    del bq, bk
+    if _use_kernel(mode, q, k, v):
+        return _flash.flash_attention_cuda(
+            q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
+            window=window, scale=scale)
+    return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   scale=scale)

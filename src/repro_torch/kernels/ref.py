@@ -17,7 +17,7 @@ from repro_torch.curvature.update import chol_downdate, chol_update
 __all__ = ["gram_ref", "gram_sv_ref", "ngd_apply_ref", "cholesky_ref",
            "cholupdate_ref", "chol_solve_ref", "sv_cross_ref",
            "serve_apply_ref", "serve_solve_ref", "trisolve_ref",
-           "fold_cols_ref"]
+           "fold_cols_ref", "flash_attention_ref"]
 
 
 def _f32(t: torch.Tensor) -> torch.Tensor:
@@ -116,3 +116,55 @@ def fold_cols_ref(S: torch.Tensor, rows: torch.Tensor):
     tgt = _acc(S, rows)
     r = rows.to(tgt)
     return S.to(tgt) @ _ct(r), r @ _ct(r)
+
+
+NEG = -0.7 * float(torch.finfo(torch.float32).max)
+FLASH_BK = 64            # the CUDA kernel's KV tile (kBK, csrc/flash_attention.cu)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window=None,
+                        scale=None) -> torch.Tensor:
+    """The flash-attention kernel's function in plain PyTorch: KV tiles of
+    the kernel's ``FLASH_BK`` keys in ascending order, s = (q·kᵀ)·scale in fp32, masked scores
+    at NEG, running max and sum in fp32, p = exp(s − m) (0 for a masked
+    key) rounded to v's dtype before P·V, o = acc / max(l, 1e-30) in q's
+    dtype. q (B, Tq, H, hd); k, v (B, Tk, KH, hd), H % KH == 0; query
+    positions start at 0 (the TPU kernel's layout), ragged Tk is fine."""
+    B, Tq, H, hd = q.shape
+    _, Tk, KH, _ = k.shape
+    g = H // KH
+    scale = hd ** -0.5 if scale is None else float(scale)
+    dev = q.device
+    f32 = torch.float32
+    qh = q.to(f32).reshape(B, Tq, KH, g, hd).permute(0, 2, 1, 3, 4) \
+        .reshape(B, KH, Tq * g, hd)
+    q_pos = torch.arange(Tq, device=dev)
+    m = torch.full((B, KH, Tq, g), NEG, dtype=f32, device=dev)
+    l = torch.zeros((B, KH, Tq, g), dtype=f32, device=dev)
+    acc = torch.zeros((B, KH, Tq, g, hd), dtype=f32, device=dev)
+    for k0 in range(0, Tk, FLASH_BK):
+        if causal and k0 > Tq - 1:
+            break                    # wholly above the diagonal, as later ones
+        k1 = min(k0 + FLASH_BK, Tk)
+        kj = k[:, k0:k1].to(f32).permute(0, 2, 1, 3)           # (B, KH, bk, hd)
+        vj = v[:, k0:k1].permute(0, 2, 1, 3)
+        s = (qh @ kj.transpose(-1, -2)).reshape(B, KH, Tq, g, k1 - k0) * scale
+        k_pos = torch.arange(k0, k1, device=dev)
+        live = torch.ones((Tq, k1 - k0), dtype=torch.bool, device=dev)
+        if causal:
+            live &= k_pos[None, :] <= q_pos[:, None]
+        if window is not None:
+            live &= k_pos[None, :] > q_pos[:, None] - window
+        live = live[None, None, :, None, :]
+        s = torch.where(live, s, NEG)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.where(live, torch.exp(s - m_new[..., None]), 0.0)
+        corr = torch.exp(m - m_new)
+        l = corr * l + p.sum(-1)
+        pv = p.to(v.dtype).to(f32).reshape(B, KH, Tq * g, k1 - k0) \
+            @ vj.to(f32)
+        acc = corr[..., None] * acc + pv.reshape(B, KH, Tq, g, hd)
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out.permute(0, 2, 1, 3, 4).reshape(B, Tq, H, hd).to(q.dtype)

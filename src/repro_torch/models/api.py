@@ -1,0 +1,69 @@
+"""Uniform model API (port of ``repro/models/api.py``) — the layer the
+serving front and the trainer talk to.
+
+``get_api(cfg)`` returns a ``ModelAPI`` whose members close over the
+config. The decoder-only families with attention slots are ported; the
+encoder-decoder and audio families, and configs with Mamba or MoE slots,
+raise ``NotImplementedError`` until their slices. ``param_specs`` and
+``make_input_specs`` (the reference's dry-run stand-ins) wait with the
+launch tooling.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+from repro_torch.models import lm
+from repro_torch.models.config import ModelConfig
+
+__all__ = ["ModelAPI", "get_api"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelAPI:
+    cfg: ModelConfig
+    init_params: Callable           # init_params(generator) -> params
+    loss: Callable                  # loss(params, batch) -> (scalar, metrics)
+    prefill: Callable               # prefill(params, batch) -> (logits, cache, idx)
+    decode_step: Callable           # decode(params, cache, idx, tokens) -> (logits, cache)
+    init_cache: Callable            # init_cache(batch, max_len) -> cache
+    sample_logp: Callable           # logp(params, ex) -> scalar (score-matrix rows)
+
+
+def get_api(cfg: ModelConfig) -> ModelAPI:
+    if cfg.family in ("encdec", "audio"):
+        raise NotImplementedError(
+            f"{cfg.name}: the encoder-decoder trunk (models/encdec.py) comes "
+            "with a later slice of the model zoo (ROADMAP A4)")
+    later = [s for s in cfg.slots if s.kind == "mamba" or s.moe
+             or s.cross_attn]
+    if later:
+        raise NotImplementedError(
+            f"{cfg.name}: {later[0]} needs a block a later slice of the "
+            "model zoo ports (ROADMAP A4)")
+
+    def init_params(gen: torch.Generator):
+        return lm.init_params(gen, cfg)
+
+    def loss(params, batch):
+        return lm.lm_loss(params, cfg, batch)
+
+    def prefill(params, batch):
+        return lm.prefill(params, cfg, batch["tokens"],
+                          max_len=batch.get("max_len",
+                                            batch["tokens"].shape[1] + 1),
+                          prefix_embeds=batch.get("prefix_embeds"))
+
+    def decode_step(params, cache, idx, tokens):
+        return lm.decode_step(params, cfg, cache, idx, tokens)
+
+    def init_cache(batch, max_len, device=None):
+        return lm.init_cache(cfg, batch, max_len, device=device)
+
+    def sample_logp(params, ex):
+        return lm.sample_logp(params, cfg, ex)
+
+    return ModelAPI(cfg, init_params, loss, prefill, decode_step, init_cache,
+                    sample_logp)

@@ -1,0 +1,442 @@
+"""Decoder-only LM trunk for attention slots (port of ``repro/models/lm.py``).
+
+Parameters are explicit trees: ``{"embed", "final_norm", "blocks"[,
+"head"]}`` where ``blocks`` is a list with one dict per slot of the
+super-block, each leaf stacked over ``cfg.repeats``. The three stack
+drivers loop over the repeats in Python and index the stacked leaves
+(the reference scans them):
+
+* ``run_stack``         — train / eval (the score pass runs it under
+  ``torch.func.vmap(grad)``);
+* ``run_stack_prefill`` — also emits the per-layer KV rows;
+* ``run_stack_decode``  — one token in, the cache written in place.
+
+Prefill routes a layer's self-attention through the flash-attention
+kernel (``kernels.ops.flash_attention``) exactly when the call is one the
+TPU kernel computes: no softcap, no ``q_offset``/``kv_len``/
+``k_positions`` (prefill never has those three). Every other call — the
+train and score passes (no backward kernel), decode (``kv_len``, ring
+positions), a softcapped model — runs the blockwise attention of
+``models.layers``, as the reference does everywhere.
+
+Initialization draws from an explicit ``torch.Generator`` with the
+reference's shapes, scales and dtypes (not its bits: ``jax.random`` and
+torch draw different numbers). Mamba, MoE and cross-attention slots come
+with later slices and raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.pytree import tree_map
+from repro_torch.kernels import ops
+from repro_torch.models import layers as L
+from repro_torch.models.config import BlockSlot, ModelConfig
+
+__all__ = ["block_apply", "chunked_ce", "decode_step", "embed_tokens",
+           "forward", "init_blocks", "init_cache", "init_params", "init_slot",
+           "lm_loss", "prefill", "run_stack", "run_stack_decode",
+           "run_stack_prefill", "sample_logp", "unembed"]
+
+F32 = torch.float32
+
+
+def _later(what: str):
+    return NotImplementedError(
+        f"{what} comes with a later slice of the model zoo (ROADMAP A4)")
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def _randn(gen: torch.Generator, shape) -> torch.Tensor:
+    return torch.randn(shape, generator=gen, dtype=F32, device=gen.device)
+
+
+def _norm_p(cfg, d, device):
+    if cfg.norm_type == "layer":
+        return {"g": torch.ones((d,), dtype=cfg.param_dtype, device=device),
+                "b": torch.zeros((d,), dtype=cfg.param_dtype, device=device)}
+    return {"g": torch.zeros((d,), dtype=cfg.param_dtype, device=device)}
+
+
+def _apply_norm(x, p, cfg):
+    if cfg.norm_type == "layer":
+        return L.layer_norm(x, p["g"], p["b"], eps=cfg.norm_eps)
+    return L.rms_norm(x, p["g"], eps=cfg.norm_eps)
+
+
+def _dense(gen, shape, dtype, scale=None):
+    scale = scale if scale is not None else shape[0] ** -0.5
+    return (_randn(gen, shape) * scale).to(dtype)
+
+
+def _init_attn(gen, cfg, d):
+    H, KH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    p = {
+        "norm": _norm_p(cfg, d, gen.device),
+        "wq": _dense(gen, (d, H * hd), cfg.param_dtype),
+        "wk": _dense(gen, (d, KH * hd), cfg.param_dtype),
+        "wv": _dense(gen, (d, KH * hd), cfg.param_dtype),
+        "wo": _dense(gen, (H * hd, d), cfg.param_dtype),
+    }
+    if cfg.use_post_norm:
+        p["post_norm"] = _norm_p(cfg, d, gen.device)
+    return p
+
+
+def _init_ffn(gen, cfg, d, *, moe: bool):
+    if moe:
+        raise _later("the MoE FFN (layers.moe_block)")
+    if cfg.mlp_type == "gelu":
+        p = {"w_up": _dense(gen, (d, cfg.d_ff), cfg.param_dtype),
+             "w_down": _dense(gen, (cfg.d_ff, d), cfg.param_dtype)}
+    else:
+        p = {"w_gate": _dense(gen, (d, cfg.d_ff), cfg.param_dtype),
+             "w_up": _dense(gen, (d, cfg.d_ff), cfg.param_dtype),
+             "w_down": _dense(gen, (cfg.d_ff, d), cfg.param_dtype)}
+    p["ffn_norm"] = _norm_p(cfg, d, gen.device)
+    if cfg.use_post_norm:
+        p["ffn_post_norm"] = _norm_p(cfg, d, gen.device)
+    return p
+
+
+def init_slot(gen: torch.Generator, slot: BlockSlot, cfg: ModelConfig, d):
+    """Params for one slot position (un-stacked)."""
+    if slot.kind == "mamba":
+        raise _later("the Mamba2 block (layers.mamba_block)")
+    if slot.cross_attn:
+        raise _later("cross-attention (models/encdec.py)")
+    p = _init_attn(gen, cfg, d)
+    p.update(_init_ffn(gen, cfg, d, moe=slot.moe))
+    return p
+
+
+def init_blocks(gen: torch.Generator, cfg: ModelConfig, d=None):
+    """List of per-slot trees, each leaf stacked over cfg.repeats."""
+    d = d or cfg.d_model
+    blocks = []
+    for slot in cfg.slots:
+        rows = [init_slot(gen, slot, cfg, d) for _ in range(cfg.repeats)]
+        blocks.append(tree_map(lambda *xs: torch.stack(xs), *rows))
+    return blocks
+
+
+def init_params(gen: torch.Generator, cfg: ModelConfig):
+    """The parameter tree, drawn from ``gen`` on ``gen.device``."""
+    params = {
+        "embed": (_randn(gen, (cfg.padded_vocab, cfg.d_model)) * 0.02
+                  ).to(cfg.param_dtype),
+        "final_norm": _norm_p(cfg, cfg.d_model, gen.device),
+        "blocks": init_blocks(gen, cfg),
+    }
+    if not cfg.tie_embeddings:
+        params["head"] = _dense(gen, (cfg.d_model, cfg.padded_vocab),
+                                cfg.param_dtype)
+    if cfg.pos_embed == "learned":
+        params["pos_embed"] = (_randn(gen, (cfg.max_target_positions or 2048,
+                                            cfg.d_model)) * 0.02
+                               ).to(cfg.param_dtype)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# block body (shared by all three drivers)
+# ---------------------------------------------------------------------------
+
+def _self_attn(slot, p, x, cfg, *, positions, mode, cache=None,
+               cache_index=None):
+    """Returns (attn_out, cache_out).
+
+    Decode-mode windowed slots use a **ring-buffer** cache of size
+    S = window: slot j holds the most recent absolute position p ≡ j (mod S)
+    with p ≤ cache_index; absolute positions are reconstructed for the mask
+    and negative (not-yet-written) slots are invalid. The decode cache is
+    written in place (the reference returns an updated copy).
+    """
+    h = _apply_norm(x, p["norm"], cfg)
+    rope_on = cfg.pos_embed == "rope"
+    q, k, v = L.attn_qkv(h, p, cfg, positions=positions, rope_on=rope_on)
+
+    if mode == "decode":
+        S = cache["k"].shape[1]
+        is_ring = slot.window is not None and slot.window <= S + 1
+        write_at = cache_index % S if is_ring else cache_index
+        cache["k"][:, write_at] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][:, write_at] = v[:, 0].to(cache["v"].dtype)
+        if is_ring:
+            j = torch.arange(S, device=x.device)
+            k_positions = cache_index - torch.remainder(cache_index - j, S)
+            out = L.flash_attention(
+                q, cache["k"], cache["v"], causal=True, window=slot.window,
+                softcap=cfg.attn_softcap, scale=cfg.query_scale,
+                q_offset=cache_index, k_positions=k_positions,
+                kv_block=min(512, S))
+        else:
+            out = L.flash_attention(
+                q, cache["k"], cache["v"], causal=True, window=slot.window,
+                softcap=cfg.attn_softcap, scale=cfg.query_scale,
+                q_offset=cache_index, kv_len=cache_index + 1,
+                kv_block=min(512, S))
+        cache_out = cache
+    elif mode == "prefill" and cfg.attn_softcap is None:
+        out = ops.flash_attention(q, k, v, causal=not slot.bidirectional,
+                                  window=slot.window, scale=cfg.query_scale)
+        cache_out = {"k": k, "v": v}
+    else:
+        out = L.flash_attention(
+            q, k, v, causal=not slot.bidirectional,
+            window=slot.window, softcap=cfg.attn_softcap,
+            scale=cfg.query_scale, kv_block=min(512, k.shape[1]),
+            bf16_operands=cfg.attn_bf16)
+        cache_out = {"k": k, "v": v} if mode == "prefill" else None
+
+    out = out.reshape(*out.shape[:2], -1) @ p["wo"]
+    if cfg.use_post_norm:
+        out = _apply_norm(out, p["post_norm"], cfg)
+    return out, cache_out
+
+
+def _ffn(slot, p, x, cfg):
+    h = _apply_norm(x, p["ffn_norm"], cfg)
+    if slot.moe:
+        raise _later("the MoE FFN (layers.moe_block)")
+    if cfg.mlp_type == "gelu":
+        out = F.gelu(h @ p["w_up"], approximate="tanh") @ p["w_down"]
+    else:
+        out = L.swiglu_mlp(h, p)
+    if cfg.use_post_norm:
+        out = _apply_norm(out, p["ffn_post_norm"], cfg)
+    return out
+
+
+def block_apply(slot: BlockSlot, p, x, cfg, *, positions, mode,
+                cache=None, cache_index=None):
+    """One layer. Returns (x, cache_out, aux_loss)."""
+    if slot.kind == "mamba":
+        raise _later("the Mamba2 block (layers.mamba_block)")
+    if slot.cross_attn:
+        raise _later("cross-attention (models/encdec.py)")
+    attn_out, cache_out = _self_attn(slot, p, x, cfg, positions=positions,
+                                     mode=mode, cache=cache,
+                                     cache_index=cache_index)
+    x = x + attn_out
+    return x + _ffn(slot, p, x, cfg), cache_out or {}, 0.0
+
+
+# ---------------------------------------------------------------------------
+# stack drivers
+# ---------------------------------------------------------------------------
+
+def _row(tree, r: int):
+    """Repeat ``r`` of a stacked slot tree."""
+    return tree_map(lambda t: t[r], tree)
+
+
+def run_stack(blocks, x, cfg, *, positions):
+    """The super-block over cfg.repeats (train / eval: no cache, blockwise
+    attention; the port does not rematerialize). Returns (x, aux)."""
+    aux = torch.zeros((), dtype=F32, device=x.device)
+    for r in range(cfg.repeats):
+        for slot, p in zip(cfg.slots, blocks):
+            x, _, a = block_apply(slot, _row(p, r), x, cfg,
+                                  positions=positions, mode="train")
+            aux = aux + a
+    return x, aux
+
+
+def run_stack_prefill(blocks, x, cfg, *, positions):
+    """Emitting cache rows. Returns (x, cache_list, aux): per slot, k and v
+    stacked over the repeats, (R, B, T, KH, hd)."""
+    aux = torch.zeros((), dtype=F32, device=x.device)
+    rows = [[] for _ in cfg.slots]
+    for r in range(cfg.repeats):
+        for si, (slot, p) in enumerate(zip(cfg.slots, blocks)):
+            x, c, a = block_apply(slot, _row(p, r), x, cfg,
+                                  positions=positions, mode="prefill")
+            rows[si].append(c)
+            aux = aux + a
+    cache = [{key: torch.stack([c[key] for c in rs]) for key in rs[0]}
+             for rs in rows]
+    return x, cache, aux
+
+
+def run_stack_decode(blocks, cache, x, cfg, *, cache_index):
+    """One token through every layer. Returns (x, cache), the cache
+    written in place."""
+    positions = torch.full((x.shape[0], 1), cache_index, device=x.device)
+    for r in range(cfg.repeats):
+        for slot, p, c in zip(cfg.slots, blocks, cache):
+            x, _, _ = block_apply(slot, _row(p, r), x, cfg,
+                                  positions=positions, mode="decode",
+                                  cache=_row(c, r), cache_index=cache_index)
+    return x, cache
+
+
+# ---------------------------------------------------------------------------
+# full model: embed → stack → logits
+# ---------------------------------------------------------------------------
+
+def embed_tokens(params, cfg, tokens):
+    x = params["embed"][tokens.long()].to(cfg.param_dtype)
+    if cfg.scale_embed:
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.param_dtype,
+                             device=x.device)
+    return x
+
+
+def unembed(params, cfg, x):
+    if cfg.tie_embeddings:
+        logits = x @ params["embed"].T
+    else:
+        logits = x @ params["head"]
+    logits = logits.to(F32)
+    if cfg.logit_softcap:
+        logits = L._softcap(logits, cfg.logit_softcap)
+    if cfg.padded_vocab != cfg.vocab:      # mask vocab-padding slots
+        mask = torch.arange(cfg.padded_vocab, device=x.device) < cfg.vocab
+        logits = torch.where(mask, logits, L.NEG_INF)
+    return logits
+
+
+def _positions_like(x, offset=0):
+    B, T = x.shape[:2]
+    return (torch.arange(T, device=x.device) + offset).expand(B, T)
+
+
+def _trunk_input(params, cfg, tokens, prefix_embeds=None):
+    x = embed_tokens(params, cfg, tokens)
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+    if cfg.pos_embed == "learned":
+        x = x + params["pos_embed"][:x.shape[1]][None].to(x.dtype)
+    return x
+
+
+def forward(params, cfg: ModelConfig, tokens, *, prefix_embeds=None):
+    """tokens: (B, T) int. prefix_embeds: (B, P, D) multimodal prefix.
+    Returns (logits (B, T[+P], V) fp32, aux)."""
+    x = _trunk_input(params, cfg, tokens, prefix_embeds)
+    x, aux = run_stack(params["blocks"], x, cfg,
+                       positions=_positions_like(x))
+    x = _apply_norm(x, params["final_norm"], cfg)
+    return unembed(params, cfg, x), aux
+
+
+def chunked_ce(params, cfg: ModelConfig, x, labels, *, mask=None,
+               chunk: int = 1024):
+    """Cross-entropy without materializing (B, T, V) logits: unembed,
+    log-softmax and gather per T-chunk. Returns (mean_nll, token_count)."""
+    B, T, D = x.shape
+    chunk = min(chunk, T)
+    nck = -(-T // chunk)
+    Tp = nck * chunk
+    pad_mask = torch.ones((B, T), dtype=F32, device=x.device) \
+        if mask is None else mask.to(F32)
+    if Tp != T:
+        x = F.pad(x, (0, 0, 0, Tp - T))
+        labels = F.pad(labels, (0, Tp - T))
+        pad_mask = F.pad(pad_mask, (0, Tp - T))
+    tot = torch.zeros((), dtype=F32, device=x.device)
+    cnt = torch.zeros((), dtype=F32, device=x.device)
+    for c in range(nck):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        logp = torch.log_softmax(unembed(params, cfg, x[:, sl]), dim=-1)
+        nll = -torch.gather(logp, -1, labels[:, sl].long()[..., None])[..., 0]
+        tot = tot + torch.sum(nll * pad_mask[:, sl])
+        cnt = cnt + torch.sum(pad_mask[:, sl])
+    return tot / torch.clamp_min(cnt, 1.0), cnt
+
+
+def sample_logp(params, cfg: ModelConfig, ex):
+    """log P_θ(x) of ONE example (no leading batch axis, no aux losses) —
+    the quantity whose per-sample gradients form the score matrix S."""
+    batch1 = {key: val[None] for key, val in ex.items()}
+    x = _trunk_input(params, cfg, batch1["inputs"],
+                     batch1.get("prefix_embeds"))
+    x, _ = run_stack(params["blocks"], x, cfg, positions=_positions_like(x))
+    x = _apply_norm(x, params["final_norm"], cfg)
+    P = x.shape[1] - batch1["labels"].shape[1]
+    if P > 0:
+        x = x[:, P:]
+    mean_nll, cnt = chunked_ce(params, cfg, x, batch1["labels"],
+                               mask=batch1.get("mask"))
+    return -mean_nll * cnt
+
+
+def lm_loss(params, cfg: ModelConfig, batch):
+    """batch: {"inputs": (B,T), "labels": (B,T), optional "mask",
+    optional "prefix_embeds"}. Returns (loss, {"nll", "aux"})."""
+    x = _trunk_input(params, cfg, batch["inputs"], batch.get("prefix_embeds"))
+    x, aux = run_stack(params["blocks"], x, cfg, positions=_positions_like(x))
+    x = _apply_norm(x, params["final_norm"], cfg)
+    P = x.shape[1] - batch["labels"].shape[1]
+    if P > 0:
+        x = x[:, P:]
+    loss, _ = chunked_ce(params, cfg, x, batch["labels"],
+                         mask=batch.get("mask"))
+    return loss + aux, {"nll": loss, "aux": aux}
+
+
+# ---------------------------------------------------------------------------
+# cache init / prefill / decode
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device=None):
+    """Zero cache (list per slot of stacked (R, batch, S, KH, hd) k, v)."""
+    KH, hd, R = cfg.n_kv_heads, cfg.head_dim, cfg.repeats
+    cache = []
+    for slot in cfg.slots:
+        if slot.kind == "mamba":
+            raise _later("the Mamba2 block's decode cache")
+        S = min(max_len, slot.window) if slot.window else max_len
+        cache.append({key: torch.zeros((R, batch, S, KH, hd),
+                                       dtype=cfg.param_dtype, device=device)
+                      for key in ("k", "v")})
+    return cache
+
+
+def prefill(params, cfg: ModelConfig, tokens, *, max_len: int,
+            prefix_embeds=None):
+    """Forward pass that also builds the decode cache.
+
+    Returns (logits (B, 1, V) of the last position, cache, next_index).
+    Windowed slots get their last ``window`` keys laid out in ring-buffer
+    order (see ``_self_attn``)."""
+    x = _trunk_input(params, cfg, tokens, prefix_embeds)
+    T = x.shape[1]
+    x, cache_rows, _ = run_stack_prefill(params["blocks"], x, cfg,
+                                         positions=_positions_like(x))
+    x = _apply_norm(x, params["final_norm"], cfg)
+    # serving needs the last position's logits only
+    logits = unembed(params, cfg, x[:, -1:])
+
+    cache = []
+    for slot, c in zip(cfg.slots, cache_rows):
+        S = min(max_len, slot.window) if slot.window else max_len
+        k, v = c["k"], c["v"]                   # (R, B, T, KH, hd)
+        if T > S:                               # ring layout of last S keys
+            p = np.arange(T - S, T)
+            order = torch.from_numpy(np.argsort(p % S)).to(k.device)
+            k = k[:, :, T - S:][:, :, order]
+            v = v[:, :, T - S:][:, :, order]
+        elif T < S:
+            k = F.pad(k, (0, 0, 0, 0, 0, S - T))
+            v = F.pad(v, (0, 0, 0, 0, 0, S - T))
+        cache.append({"k": k.contiguous(), "v": v.contiguous()})
+    return logits, cache, T
+
+
+def decode_step(params, cfg: ModelConfig, cache, cache_index: int, tokens):
+    """tokens: (B, 1). Returns (logits (B, 1, V), cache) — the cache is
+    written in place."""
+    x = embed_tokens(params, cfg, tokens)
+    if cfg.pos_embed == "learned":
+        x = x + params["pos_embed"][cache_index][None, None].to(x.dtype)
+    x, cache = run_stack_decode(params["blocks"], cache, x, cfg,
+                                cache_index=cache_index)
+    x = _apply_norm(x, params["final_norm"], cfg)
+    return unembed(params, cfg, x), cache

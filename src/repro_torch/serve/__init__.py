@@ -8,6 +8,9 @@ damped-Fisher solves against the resident factorization.
   algebra, bounded staleness by age/drift refreshes.
 * ``server``  — ``SolveServer``: submit → coalesce → solve → adapt.
 
+* ``main``    — ``serve_main``/``serve_trace``: the LM serving loop
+  (``python -m repro_torch.serve``), imported on use.
+
 The journal, checkpoints, tenants and observability hooks come with later
 slices.
 """

@@ -1,0 +1,269 @@
+"""``serve_main`` — the online NGD serving loop of an LM as a CLI (port of
+``repro/serve/main.py``, the eager in-process loop).
+
+    PYTHONPATH=src python -m repro_torch.serve --arch llama3.2-3b \\
+        --device cpu --requests 6 --window 6 --seq 12 --decode-tokens 2
+
+Synthetic request traffic drives the serving path end to end: each
+request carries a handful of fine-tuning examples and a prompt. Per
+request ``serve_trace``
+
+1. runs the score-grad pass (``launch.train.make_score_grads``) — the
+   mean-gradient RHS v plus per-sample score rows for the window fold;
+2. submits v to the token-budget batcher with the request's λ (every
+   fifth request asks for 4λ₀);
+3. flushes coalesced microbatches through the ``SolveServer`` (resident
+   factor; no Gram on the request path), applies the natural-gradient
+   updates to the live params, feeds the Levenberg–Marquardt damping
+   state with each request's actual against predicted loss reduction
+   (the drift threshold's autotune), and lets ``OnlineAdaptation`` fold
+   the rows and refresh on age or drift;
+4. greedy-decodes the response: prefill (the flash-attention kernel on
+   the card) and one-token decode steps.
+
+It prints p50/p99 solve latency, requests/sec and the window counters at
+exit. ``--smoke`` (the default) serves the architecture's reduced config;
+``--full`` its published widths, ``--n-layers`` cuts the depth. The
+fleet, the async and sharded servers, tenants, observability, the audit
+and checkpoints come with later slices (ROADMAP A5–A9) and raise
+``NotImplementedError`` when asked for.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import configs
+from repro_torch.core.damping import LevenbergMarquardtDamping
+from repro_torch.launch.trainer import build_server
+
+__all__ = ["serve_main", "serve_trace"]
+
+
+def _sync(device: torch.device) -> float:
+    """Host clock after the device has finished its queued work."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return time.perf_counter()
+
+
+def serve_trace(server, h, *, requests: int, window: int, adapt_examples: int,
+                seq: int, decode_tokens: int, damping: float, lr: float,
+                burst: int, seed: int = 0, keep_logits: bool = False,
+                on_result: Optional[Callable] = None, log=print) -> dict:
+    """Serve ``requests`` synthetic requests; the per-request loop of the
+    reference's eager ``serve_main``.
+
+    Returns ``{"records": [...], "damping_state", "rounds"}``, one record
+    per served request in completion order: ``request``, ``uid``,
+    ``damping``, ``loss`` (before its update), ``tokens`` (greedy ids),
+    ``solve_ms`` (the server's submit → solution latency), and the wall
+    times ``score_ms`` (score pass), ``flush_ms`` (its flush's time over
+    the flush's requests), ``apply_ms`` (update + damping feedback) and
+    ``decode_ms`` (prefill + decode), each ended by a device sync; with
+    ``keep_logits`` also ``logits``, the (decode_tokens, V) fp32 logits
+    of the greedy steps, on the host. ``on_result(record, result)`` sees
+    each solve result (``result.x``) before the next request is served.
+    """
+    dev = h.device
+    lm_damping = LevenbergMarquardtDamping(damping)
+    dstate = lm_damping.init()
+    rng = np.random.default_rng(seed)
+    records, pending, rounds = [], {}, 0
+
+    for r in range(requests):
+        # one synthetic request: adaptation examples + a prompt
+        t0 = _sync(dev)
+        full = h.data.batch_at(r + 1)
+        take = np.sort(rng.choice(window, size=adapt_examples, replace=False))
+        ex = {key: val[take] for key, val in full.items()}
+        loss, v, rows = h.score_grads(h.params, ex)
+        # per-request λ: occasional requests ask for extra damping
+        lam = damping * (4.0 if r % 5 == 4 else 1.0)
+        uid = server.submit(v, damping=lam, tokens=adapt_examples * seq,
+                            rows=rows)
+        del rows
+        rec = {"request": r, "uid": uid, "damping": lam, "loss": float(loss),
+               "tokens": [], "score_ms": (_sync(dev) - t0) * 1e3}
+        pending[uid] = (v, rec, ex)
+
+        if (r + 1) % burst and r != requests - 1:
+            continue
+        t0 = _sync(dev)
+        results = server.flush(damping_state=dstate)
+        flush_ms = (_sync(dev) - t0) * 1e3
+        for res in results:
+            v_req, rec, ex_req = pending.pop(res.uid)
+            t0 = time.perf_counter()
+            h.apply_update(res.x, lr=lr)
+            # trust-region feedback for the drift autotune: actual vs
+            # predicted reduction of this request's adaptation loss
+            loss_after = h.loss(ex_req)
+            predicted = lr * float(torch.dot(v_req, res.x.to(v_req.dtype)))
+            dstate = lm_damping.update(
+                dstate, actual_reduction=rec["loss"] - loss_after,
+                predicted_reduction=max(predicted, 1e-30))
+            rec.update(flush_ms=flush_ms / len(results),
+                       apply_ms=(_sync(dev) - t0) * 1e3,
+                       solve_ms=res.latency_s * 1e3)
+            if on_result is not None:
+                on_result(rec, res)
+            del v_req
+            if decode_tokens > 0:
+                t0 = _sync(dev)
+                ids, logits = h.decode(ex_req["inputs"][:1, :seq],
+                                       new_tokens=decode_tokens,
+                                       return_logits=True)
+                rec["decode_ms"] = (_sync(dev) - t0) * 1e3
+                rec["tokens"] = ids[0].tolist()
+                if keep_logits:
+                    rec["logits"] = logits[0].cpu()
+                log(f"req {res.uid:3d} λ={res.damping:.3g} "
+                    f"loss {rec['loss']:8.4f} "
+                    f"solve {rec['solve_ms']:6.1f} ms "
+                    f"tokens {rec['tokens'][:8]}")
+            records.append(rec)
+        if results:
+            rounds += 1
+    return {"records": records, "damping_state": dstate, "rounds": rounds}
+
+
+def _parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n", 1)[0])
+    ap.add_argument("--arch", choices=configs.list_archs(),
+                    default="llama3.2-3b")
+    ap.add_argument("--smoke", action="store_true", default=True,
+                    help="reduced config (CPU-runnable); on by default")
+    ap.add_argument("--full", dest="smoke", action="store_false")
+    ap.add_argument("--n-layers", type=int, default=None,
+                    help="cut the config's depth to this many layers "
+                         "(published widths kept)")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda; 'cpu' runs the "
+                         "plain versions of the kernels)")
+    ap.add_argument("--requests", type=int, default=12,
+                    help="synthetic requests to serve")
+    ap.add_argument("--window", type=int, default=8,
+                    help="resident curvature window size n (samples)")
+    ap.add_argument("--seq", type=int, default=16)
+    ap.add_argument("--adapt-examples", type=int, default=2,
+                    help="fine-tuning examples per request")
+    ap.add_argument("--decode-tokens", type=int, default=4,
+                    help="greedy tokens decoded per request (0: skip)")
+    ap.add_argument("--damping", type=float, default=1e-2,
+                    help="resident λ0; requests may deviate per-request")
+    ap.add_argument("--lr", type=float, default=0.05)
+    ap.add_argument("--max-tokens", type=int, default=64,
+                    help="batcher token budget per microbatch")
+    ap.add_argument("--max-requests", type=int, default=4,
+                    help="batcher RHS width cap per microbatch")
+    ap.add_argument("--burst", type=int, default=3,
+                    help="requests submitted before each flush")
+    ap.add_argument("--refresh-every", type=int, default=16,
+                    help="age bound: full refresh after this many "
+                         "microbatches")
+    ap.add_argument("--drift-tol", type=float, default=None,
+                    help="static drift bound (overrides --drift-frac)")
+    ap.add_argument("--drift-frac", type=float, default=0.25,
+                    help="autotuned drift bound fraction")
+    ap.add_argument("--window-dtype", choices=["fp32", "bf16"],
+                    default="fp32",
+                    help="resident score-window storage dtype")
+    ap.add_argument("--seed", type=int, default=0)
+    # the reference's other flavours: accepted, refused until their slices
+    ap.add_argument("--mesh-shape", default="1,1")
+    ap.add_argument("--mesh", choices=["replicated", "1d", "2d"],
+                    default="replicated")
+    ap.add_argument("--async", dest="async_", action="store_true")
+    ap.add_argument("--fleet", type=int, default=0, metavar="N")
+    ap.add_argument("--route", choices=["round_robin", "least_loaded",
+                                        "by_adapter"], default="round_robin")
+    ap.add_argument("--no-reconcile", action="store_true")
+    ap.add_argument("--tenants", type=int, default=0, metavar="N")
+    ap.add_argument("--ckpt-every", type=int, default=0,
+                    help="checkpoint cadence in flush rounds (0: off; "
+                         "checkpoints come with ROADMAP A7)")
+    ap.add_argument("--metrics-port", type=int, default=None)
+    ap.add_argument("--metrics-snapshot", default=None)
+    ap.add_argument("--trace-out", default=None)
+    ap.add_argument("--profile-dir", default=None)
+    ap.add_argument("--audit-every", type=int, default=0, metavar="K",
+                    help="0: off (the audit hook comes with ROADMAP A6)")
+    ap.add_argument("--health-port", type=int, default=None)
+    ap.add_argument("--record-dir", default=None)
+    return ap
+
+
+# flag → (is it asked for, the queue of ROADMAP A that ports it)
+def _later_flags(args) -> dict:
+    return {
+        "--fleet": (args.fleet > 0, "A9 (the fleet)"),
+        "--no-reconcile": (args.no_reconcile, "A9 (the fleet)"),
+        "--route": (args.route != "round_robin", "A9 (the fleet)"),
+        "--async": (args.async_, "A8 (the sharded tier)"),
+        "--mesh": (args.mesh != "replicated", "A8 (the sharded tier)"),
+        "--mesh-shape": (args.mesh_shape.replace(" ", "") != "1,1",
+                         "A10 (launch tooling)"),
+        "--tenants": (args.tenants > 0, "A5 (tenants)"),
+        "--ckpt-every": (args.ckpt_every > 0, "A7 (checkpoints)"),
+        "--metrics-port": (args.metrics_port is not None,
+                           "A6 (observability)"),
+        "--metrics-snapshot": (args.metrics_snapshot is not None,
+                               "A6 (observability)"),
+        "--trace-out": (args.trace_out is not None, "A6 (observability)"),
+        "--profile-dir": (args.profile_dir is not None, "A6 (observability)"),
+        "--audit-every": (args.audit_every > 0, "A6 (observability)"),
+        "--health-port": (args.health_port is not None, "A6 (observability)"),
+        "--record-dir": (args.record_dir is not None, "A6 (observability)"),
+    }
+
+
+def serve_main(argv=None):
+    args = _parser().parse_args(argv)
+    for flag, (asked, queue) in _later_flags(args).items():
+        if asked:
+            raise NotImplementedError(f"{flag} comes with ROADMAP {queue}")
+    cfg = configs.get_smoke(args.arch) if args.smoke \
+        else configs.get_config(args.arch)
+    if args.n_layers is not None:
+        cfg = cfg.scaled(n_layers=args.n_layers)
+
+    t0 = time.perf_counter()
+    server, h = build_server(
+        cfg, window=args.window, seq=args.seq, damping=args.damping,
+        max_tokens=args.max_tokens, max_requests=args.max_requests,
+        refresh_every=args.refresh_every, drift_tol=args.drift_tol,
+        drift_frac=args.drift_frac,
+        window_dtype=None if args.window_dtype == "fp32" else "bfloat16",
+        seed=args.seed, device=args.device)
+    print(f"resident window factorized: n={args.window} "
+          f"m={server.state.S.shape[1]} λ0={args.damping} [eager] on "
+          f"{h.device} ({(time.perf_counter() - t0) * 1e3:.0f} ms)",
+          flush=True)
+
+    out = serve_trace(server, h, requests=args.requests, window=args.window,
+                      adapt_examples=args.adapt_examples, seq=args.seq,
+                      decode_tokens=args.decode_tokens, damping=args.damping,
+                      lr=args.lr, burst=args.burst, seed=args.seed,
+                      log=lambda line: print(line, flush=True))
+    s = server.metrics.summary()
+    st = server.stats
+    dstate = out["damping_state"]
+    print(f"served {s['served']} requests: "
+          f"p50 {s['p50_ms']:.1f} ms  p99 {s['p99_ms']:.1f} ms  "
+          f"{s['rps']:.1f} req/s  {s['tokens_per_s']:.0f} tok/s")
+    print(f"window: adapted {int(st.adapted)} rows, "
+          f"{int(st.refreshes)} full refreshes over "
+          f"{int(st.microbatches)} microbatches "
+          f"(drift tol now "
+          f"{float(server.adaptation.effective_drift_tol(dstate)):.3g}, "
+          f"λ now {float(dstate.lam):.3g})")
+    return server, [rec["loss"] for rec in out["records"]]
+
+
+if __name__ == "__main__":
+    serve_main()
