@@ -8,8 +8,10 @@ Phases, each printing its own lines:
 2. build  — compile the hand-written CUDA kernels from ``csrc/``;
 3. kernel checks — every kernel against its plain PyTorch version on the
    card over a shape sweep up to (2048, 200_000), fp32 and bf16 windows
-   (serve kernels at k ∈ {1, 5, 8, 16}; the Cholesky at n ∈ {16, 100,
-   130, 256, 1024, 2048} on SPD W); a second call must be bit-identical;
+   (serve kernels at k ∈ {1, 5, 8, 16}; the Cholesky at n ∈ {1, 15, 16,
+   17, 64, 65, 100, 130, 256, 1024, 2048, 4096} on SPD W, its upper
+   triangle 0 and, by torch.profiler, one kernel launch a factorization);
+   a second call must be bit-identical;
 4. serving path, dense — ``SolveServer`` at the paper's Table-1 shape
    (n = 1024 samples, m = 100_000 parameters, λ₀ = 1e-3): 64 requests
    with fold rows, one mixed-λ microbatch, age refreshes; the same trace
@@ -41,23 +43,32 @@ Phases, each printing its own lines:
 11. streaming curvature — ``CurvatureCache`` at 512 × 100_000 over 6
    solves of a drifting window against the card's plain ``chol_solve``
    and the same trace on the CPU; ``StreamingGram`` over the 4 blocks;
-12. flash-attention checks — the kernel against its plain version over
+12. flash-attention checks — the kernels against their plain version over
    (KH, group) ∈ {(2,1), (2,2), (1,4), (8,3)}, causal / window 64 /
-   bidirectional, T ∈ {16, 200, 256, 1024}, hd ∈ {32, 128}, fp32 and
-   bf16; repeats bit-identical, rows with no live key 0;
+   bidirectional, T ∈ {16, 200, 256, 1000, 1024}, hd ∈ {32, 64, 128},
+   fp32 and bf16 (bf16 at hd 64 and 128 is the wgmma + TMA kernel), and
+   B = 2 with ragged (Tq, Tk) ∈ {(300, 1000), (1000, 300), (129, 255)};
+   the wgmma kernel also at T ∈ {8192, 32768} (24/8 heads) and at scales
+   1.5 and −0.3; repeats bit-identical, rows with no live key 0;
 13. LM serving — llama3.2-3b at published widths cut to 2 layers, bf16:
    ``build_server`` and ``serve_main``'s loop (``serve_trace``) over 8
    requests (window 8, seq 1024, 2 examples each, burst 3, 8 greedy
    tokens, λ₀ = 1e-2, every fifth request at 4λ₀), then the same trace
    with every kernel at its plain version; losses, x, the first
    prefill's logits and the tokens gated; 2 flash-attention launches a
-   prefill;
+   prefill; every request's x also held (5e-3) to its v re-solved on the
+   plain route against a factorization of the kernel run's own window at
+   that request (the same inputs, so every fold's kernel work is covered,
+   not only the first burst's);
 14. long prefill — all 28 layers of llama3.2-3b, one 32,768-token prompt
-   (configs/shapes.py prefill_32k, batch 32 → 1): 28 launches; layer 0's
-   attention at that shape against the plain version;
+   (configs/shapes.py prefill_32k, batch 32 → 1): 28 launches, the
+   profile showing the wgmma kernel; layer 0's attention at that shape
+   against the plain version;
 15. profiles of one dense flush, one (1024, 100_000) solve, one NGD step,
    one update+downdate slide, one LM serving round and the long prefill;
-   per-kernel launches, times, plain and library times, bounds.
+   per-kernel launches, times, plain and library times, bounds (the
+   Cholesky also at n = 256 and 2048, flash attention at T = 1024 and
+   32,768).
 
 Any failed check raises, so the script exits non-zero. The last line is
 ``{"ok": true, "device": {...}}``.
@@ -91,6 +102,7 @@ from repro_torch.core import (BlockedScores, chol_factorize,  # noqa: E402
 from repro_torch.curvature import (CurvatureCache,  # noqa: E402
                                    StreamingCurvature, StreamingGram)
 from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels.ref import WGMMA_HEAD_DIMS  # noqa: E402
 from repro_torch.launch.train import make_prefill  # noqa: E402
 from repro_torch.launch.trainer import build_server  # noqa: E402
 from repro_torch.models import get_api  # noqa: E402
@@ -100,6 +112,7 @@ from repro_torch.optim import (NaturalGradient,  # noqa: E402
 from repro_torch.serve import (OnlineAdaptation, SolveServer,  # noqa: E402
                                TokenBudgetBatcher, init_serve_state)
 from repro_torch.serve.main import serve_trace  # noqa: E402
+from repro_torch.serve.state import serve_mode  # noqa: E402
 from repro_torch.tenants import (augmented_window,  # noqa: E402
                                  delta_factor, delta_fold, init_tenant_delta,
                                  project_rows, tenant_factorization)
@@ -112,7 +125,9 @@ SWEEP_K = (1, 5, 8, 16)
 REQUESTS, PER_MB, ROWS_PER_REQ, MIXED_MB = 64, 8, 2, 3
 SEED = 0
 TABLE1 = [(256, M), (1024, M), (2048, M)]   # configs/paper.py Table-1 rows
-CHOL_N = (16, 100, 130, 256, 1024, 2048)
+# the blocked kernel's edges: 1, one ragged tile (15, 17), one tile (16,
+# 64), a ragged second tile (65), and the Table-1 sizes beyond
+CHOL_N = (1, 15, 16, 17, 64, 65, 100, 130, 256, 1024, 2048, 4096)
 # examples/ngd_mlp_train.py --big: d_in 64, width 512, n = 256 samples
 MLP_D_IN, MLP_WIDTH, MLP_N, NGD_STEPS = 64, 512, 256, 5
 
@@ -141,8 +156,15 @@ STREAM_N, STREAM_STEPS, STREAM_EPS = 512, 6, 1e-4
 # flash attention: the sweep of tests/test_kernels.py:116-146 and beyond
 FLASH_GQA = ((2, 1), (2, 2), (1, 4), (8, 3))          # (KH, group)
 FLASH_MASKS = ((True, None), (True, 64), (False, None))  # (causal, window)
-FLASH_T = (16, 200, 256, 1024)
-FLASH_HD = (32, 128)
+FLASH_T = (16, 200, 256, 1000, 1024)
+FLASH_HD = (32, 64, 128)
+FLASH_RAGGED = ((300, 1000), (1000, 300), (129, 255))   # (Tq, Tk), B = 2
+# the wgmma kernel (bf16, hd 64 and 128) at the prefills' lengths, llama's
+# 24/8 heads, B = 1; and at scales other than 1/sqrt(hd) (a large one
+# would overflow a softmax that scaled after the row max; a negative one
+# reverses the row max)
+FLASH_LONG_T = (8192, 32768)
+FLASH_SCALES = (1.5, -0.3)
 # fp32: tests/test_kernels.py:129's 2e-4. bf16 outputs are rounded to bf16
 # after fp32 sums taken in another order: one bf16 ulp of the largest
 # output is at most 2^-7 of it, so 1e-2 of max |o|.
@@ -195,7 +217,7 @@ KERNELS = {
                   "src/repro/kernels/ngd_apply.py:41"),
     "cholupdate": ("src/repro_torch/kernels/csrc/cholupdate.cu",
                    "src/repro/kernels/cholupdate.py:68"),
-    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_wgmma.cuh",
                         "src/repro/kernels/flash_attention.py:101"),
 }
 
@@ -428,12 +450,25 @@ def profile(label: str, fn, prepare=None) -> None:
     if not busy:
         print(f"  {label}: {wall:.3f} ms wall; device time not measured "
               "(the profiler returned no device events)")
-        return
+        return busy
     total = sum(busy.values())
     print(f"  {label}: {wall:.3f} ms wall, device busy {total:.3f} ms "
           f"({100 * total / wall:.1f} %)")
     for key, ms in sorted(busy.items(), key=lambda kv: -kv[1])[:14]:
         print(f"    {ms:8.3f} ms  {key[:90]}")
+    return busy
+
+
+def require_wgmma_attention(label: str, busy: dict) -> None:
+    """Where the profiler saw device kernels: attention ran on the wgmma
+    kernel, never on the mma.sync one."""
+    if not busy:
+        return
+    names = " ".join(busy)
+    if "flash_wgmma_kernel" not in names or "flash_mma_kernel" in names:
+        raise AssertionError(f"{label}: attention did not run on the wgmma "
+                             "kernel alone")
+    print(f"  {label}: attention on flash_wgmma_kernel only", flush=True)
 
 
 def profile_flush(trace) -> None:
@@ -516,20 +551,61 @@ def algorithm1_checks() -> dict:
             print(f"  {n}x{m} {str(dtype)[6:]}: rel err "
                   + " ".join(f"{k}={e:.2e}" for k, e in worst.items()),
                   flush=True)
-    errs, times = [], []
+    errs = []
     for n in CHOL_N:
         W = spd(n, gen)
         fn = lambda mode: ops.cholesky(W, mode=mode)  # noqa: E731
         err, abs_err = check_case(f"cholesky n={n}", fn, PASS_TOL)
+        if not torch.triu(fn("kernel"), 1).eq(0).all():
+            raise AssertionError(f"cholesky n={n}: upper triangle not 0")
         errs.append(f"{n}: {err:.2e}")
         if n == N:
             main_err["cholesky"] = abs_err
-        if n >= N:      # the Table-1 sizes of path A: kernel / plain ms
-            times.append(f"{n}: {time_ms(lambda: fn('kernel')):.4f} / "
-                         f"{time_ms(lambda: fn('ref')):.4f} ms")
-    print("  cholesky (SPD W) rel err " + ", ".join(errs) + "; kernel / "
-          "plain " + ", ".join(times), flush=True)
+    print("  cholesky (SPD W) rel err " + ", ".join(errs) + f" (gate "
+          f"{PASS_TOL:g}); repeats bit-identical, upper triangle 0",
+          flush=True)
+    cholesky_launch_count(gen)
     return main_err
+
+
+def cholesky_launch_count(gen, calls: int = 3) -> None:
+    """torch.profiler over ``calls`` factorizations at each n of the sweep:
+    one kernel launch per factorization (the memset that zeroes the grid
+    barrier's counters aside), whatever n."""
+    act = [torch.profiler.ProfilerActivity.CPU,
+           torch.profiler.ProfilerActivity.CUDA]
+    seen = []
+    for n in CHOL_N:
+        W = spd(n, gen)
+        ops.cholesky(W, mode="kernel")           # warm-up (the build, the load)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=act) as prof:
+            for _ in range(calls):
+                ops.cholesky(W, mode="kernel")
+            torch.cuda.synchronize()
+        kernels = {e.key: e.count for e in prof.key_averages()
+                   if getattr(e, "device_type", None)
+                   == torch.autograd.DeviceType.CUDA
+                   and "memset" not in e.key.lower()}
+        if sum(kernels.values()) != calls or not all(
+                "cholesky_kernel" in key for key in kernels):
+            raise AssertionError(f"cholesky n={n}: {calls} factorizations "
+                                 f"launched {kernels}")
+        seen.append(n)
+    print(f"  cholesky: torch.profiler counts one kernel launch "
+          f"(cholesky_kernel) per factorization at n = {seen}", flush=True)
+
+
+def cholesky_timings(bw: float, flops: float) -> None:
+    """Row 5 at path A's sizes: kernel, plain and torch.linalg.cholesky
+    (cuSOLVER; the port never calls it as the kernel's route) on SPD W."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    for n in (256, N, 2048):
+        W = spd(n, gen)
+        time_cases({"cholesky": lambda mode: ops.cholesky(W, mode=mode)},
+                   {"cholesky": lambda: torch.linalg.cholesky(W)},
+                   lambda name: bound(name, n, 0, 1, 4, bw, flops, flops),
+                   f"n={n}")
 
 
 # ---------------------------------------------------------------------------
@@ -990,12 +1066,30 @@ def streaming_path() -> None:
 # 12. flash attention: kernel checks
 # ---------------------------------------------------------------------------
 
-def attention_inputs(B, T, KH, g, hd, dtype, gen):
-    """q (B, T, KH·g, hd), k and v (B, T, KH, hd), N(0, 1), on the card."""
-    def draw(heads):
-        return torch.randn((B, T, heads, hd), generator=gen,
+def attention_inputs(B, T, KH, g, hd, dtype, gen, Tk=None):
+    """q (B, T, KH·g, hd), k and v (B, Tk or T, KH, hd), N(0, 1), on the
+    card."""
+    def draw(rows, heads):
+        return torch.randn((B, rows, heads, hd), generator=gen,
                            device="cuda").to(dtype)
-    return draw(KH * g), draw(KH), draw(KH)
+    Tk = T if Tk is None else Tk
+    return draw(T, KH * g), draw(Tk, KH), draw(Tk, KH)
+
+
+def flash_case(q, k, v, causal, window, label,
+               scale=None) -> tuple[float, float]:
+    """One sweep case: kernel twice (bit-identical) against the plain
+    version; the output a finite tensor of q's shape and dtype."""
+    def fn(mode):
+        return ops.flash_attention(q, k, v, causal=causal, window=window,
+                                   scale=scale, mode=mode)
+    err, abs_err = check_case(label, fn, FLASH_TOL[q.dtype])
+    out = fn("kernel")
+    if out.shape != q.shape or out.dtype != q.dtype \
+            or not torch.isfinite(out).all():
+        raise AssertionError(f"{label}: not a finite {tuple(q.shape)} "
+                             f"{q.dtype}")
+    return err, abs_err
 
 
 def flash_checks() -> dict:
@@ -1011,32 +1105,64 @@ def flash_checks() -> dict:
                 for T in FLASH_T:
                     q, k, v = attention_inputs(2, T, KH, g, hd, dtype, gen)
                     for causal, window in FLASH_MASKS:
-                        def fn(mode):
-                            return ops.flash_attention(q, k, v, causal=causal,
-                                                       window=window, mode=mode)
-                        label = (f"flash_attention {str(dtype)[6:]} hd={hd} "
-                                 f"KH={KH} g={g} T={T} causal={causal} "
-                                 f"window={window}")
-                        err, abs_err = check_case(label, fn, FLASH_TOL[dtype])
-                        out = fn("kernel")
-                        if out.shape != q.shape or out.dtype != dtype \
-                                or not torch.isfinite(out).all():
-                            raise AssertionError(f"{label}: not a finite "
-                                                 f"{tuple(q.shape)} {dtype}")
+                        err, abs_err = flash_case(
+                            q, k, v, causal, window,
+                            f"flash_attention {str(dtype)[6:]} hd={hd} KH={KH} "
+                            f"g={g} T={T} causal={causal} window={window}")
                         worst = max(worst, err)
                         if (dtype, hd, KH, g, T, causal, window) == (
                                 torch.bfloat16, 128, 8, 3, 1024, True, None):
                             main_err["flash_attention"] = abs_err
+                for Tq, Tk in FLASH_RAGGED:
+                    q, k, v = attention_inputs(2, Tq, KH, g, hd, dtype, gen,
+                                               Tk=Tk)
+                    for causal, window in FLASH_MASKS:
+                        err, _ = flash_case(
+                            q, k, v, causal, window,
+                            f"flash_attention {str(dtype)[6:]} hd={hd} KH={KH} "
+                            f"g={g} Tq={Tq} Tk={Tk} causal={causal} "
+                            f"window={window}")
+                        worst = max(worst, err)
             print(f"  {str(dtype)[6:]} hd={hd}: worst rel err {worst:.2e} over "
-                  f"(KH, group) {FLASH_GQA}, T {FLASH_T}, masks "
-                  f"{FLASH_MASKS} (gate {FLASH_TOL[dtype]:g})", flush=True)
-    # a fully masked row (q beyond every key of its window) gives 0, not NaN
-    q, k, v = attention_inputs(1, 300, 2, 2, 128, torch.bfloat16, gen)
-    short = ops.flash_attention(q, k[:, :40], v[:, :40], causal=True, window=16,
-                                mode="kernel")
-    torch.cuda.synchronize()
-    if not (torch.isfinite(short).all() and short[:, 60:].eq(0).all()):
-        raise AssertionError("flash_attention: fully masked rows not 0")
+                  f"(KH, group) {FLASH_GQA}, T {FLASH_T}, (Tq, Tk) "
+                  f"{FLASH_RAGGED}, masks {FLASH_MASKS} (gate "
+                  f"{FLASH_TOL[dtype]:g})", flush=True)
+    for hd in WGMMA_HEAD_DIMS:
+        worst = 0.0
+        for T in FLASH_LONG_T:
+            q, k, v = attention_inputs(1, T, 8, 3, hd, torch.bfloat16, gen)
+            for causal, window in FLASH_MASKS:
+                err, _ = flash_case(q, k, v, causal, window,
+                                    f"flash_attention bf16 hd={hd} 24/8 T={T} "
+                                    f"causal={causal} window={window}")
+                worst = max(worst, err)
+            del q, k, v
+        q, k, v = attention_inputs(2, 300, 2, 2, hd, torch.bfloat16, gen)
+        for scale in FLASH_SCALES:
+            for causal, window in ((True, 16), (False, None)):
+                err, _ = flash_case(q, k, v, causal, window,
+                                    f"flash_attention bf16 hd={hd} T=300 "
+                                    f"scale={scale} causal={causal} "
+                                    f"window={window}", scale=scale)
+                worst = max(worst, err)
+        print(f"  bfloat16 hd={hd} (wgmma): worst rel err {worst:.2e} at T "
+              f"{FLASH_LONG_T} (24/8 heads, masks {FLASH_MASKS}) and at "
+              f"scales {FLASH_SCALES} (gate {FLASH_TOL[torch.bfloat16]:g})",
+              flush=True)
+    # a fully masked row (q beyond every key of its window) gives 0, not
+    # NaN: within 64-row and 128-row q tiles, and past a 128-key tile
+    for Tq, Tk, window, hd in ((300, 40, 16, 128), (600, 200, 32, 128),
+                               (600, 200, 32, 64), (300, 40, 16, 32)):
+        q, k, v = attention_inputs(1, Tq, 2, 2, hd, torch.bfloat16, gen, Tk=Tk)
+        short = ops.flash_attention(q, k, v, causal=True, window=window,
+                                    mode="kernel")
+        torch.cuda.synchronize()
+        dead = Tk + window - 1          # rows from here on see no key
+        if not (torch.isfinite(short).all() and short[:, dead:].eq(0).all()
+                and short[:, :dead].abs().sum() > 0):
+            raise AssertionError(f"flash_attention Tq={Tq} Tk={Tk} window="
+                                 f"{window} hd={hd}: rows with no live key "
+                                 "not 0")
     print("  repeats bit-identical; rows with no live key give 0", flush=True)
     return main_err
 
@@ -1062,14 +1188,59 @@ def gram64(S, chunk: int = 1 << 26) -> torch.Tensor:
     return W
 
 
+def plain_resolve_err(state, v, lam: float, jitter: float, x) -> float:
+    """max |x − x_plain| / max |x_plain|, x_plain being v solved on the
+    plain route (``ops.default_mode("ref")``) against a factorization of
+    the kernel run's own window at this request, at λ: the same inputs,
+    and neither a kernel nor the folds' maintained W and L in it."""
+    with ops.default_mode("ref"):
+        fac = chol_factorize(state.S, lam, mode=serve_mode(state),
+                             jitter=jitter)
+        x_plain = fac.solve(v.to(state.S.device))
+    return float((x - x_plain).abs().max() / x_plain.abs().max()
+                 .clamp_min(1e-30))
+
+
+def same_inputs_check(server, errs: dict, sync):
+    """Wrap the server's microbatch solve: after each one, hold every
+    request's x to ``plain_resolve_err`` of the state and v it was solved
+    with (errs[uid]). The check's time is taken off the server's clock,
+    so the latency metrics leave it out (a flush's wall time keeps it).
+    Returns the undo."""
+    serve, clock = server._serve, server.clock
+    paused = [0.0]
+
+    def checked(mb):
+        st = server.state
+        out = serve(mb)
+        t0 = time.perf_counter()
+        for j, res in enumerate(out):
+            errs[res.uid] = plain_resolve_err(st, mb.V[:, j],
+                                              float(mb.dampings[j]),
+                                              server.jitter, res.x)
+        sync()
+        paused[0] += time.perf_counter() - t0
+        return out
+
+    def undo():
+        server._serve, server.clock = serve, clock
+        return paused[0]
+    server._serve = checked
+    server.clock = lambda: clock() - paused[0]
+    return undo
+
+
 def lm_trace(cfg, mode, *, device="cuda", against=None, profile_round=False):
     """Build the server and serve the trace with every kernel wrapper at
     ``mode`` (None: kernels on the card; "ref": the plain versions).
     ``against``: the kernel run's result; each solution x is then held
-    to it as it comes. Returns the records, x of each request (on the
-    host, kernel run only), the launch counts and the server summary."""
+    to it as it comes. Without ``against`` each x is also held to its v
+    re-solved on the plain route against the run's own window
+    (``same_inputs_check``).
+    Returns the records, x of each request (on the host, kernel run
+    only), those errors, the launch counts and the server summary."""
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
-    xs, x_err = {}, {}
+    xs, x_err, same_err = {}, {}, {}
     gc.collect()
     if device == "cuda":
         torch.cuda.empty_cache()
@@ -1097,6 +1268,8 @@ def lm_trace(cfg, mode, *, device="cuda", against=None, profile_round=False):
         sync()
         build_s = time.perf_counter() - t0
         m = server.state.S.shape[1]
+        undo = same_inputs_check(server, same_err, sync) \
+            if against is None else None
         t0 = time.perf_counter()
         out = serve_trace(server, h, requests=LM_REQUESTS, window=LM_WINDOW,
                           adapt_examples=LM_ADAPT, seq=LM_SEQ,
@@ -1106,13 +1279,16 @@ def lm_trace(cfg, mode, *, device="cuda", against=None, profile_round=False):
                           log=lambda line: print("    " + line, flush=True))
         sync()
         trace_s = time.perf_counter() - t0
+        check_s = undo() if undo is not None else 0.0
     counts = ops.launch_counts()
     summary = server.metrics.summary()
     stats = server.stats
     print(f"  [{mode or 'kernels'}] m = {m:,} parameters, window "
           f"{LM_WINDOW}x{m} {str(server.state.S.dtype)[6:]} "
           f"({server.state.S.numel() * server.state.S.element_size() / 1e9:.2f}"
-          f" GB); build {build_s:.1f} s, trace {trace_s:.1f} s; solve p50 "
+          f" GB); build {build_s:.1f} s, trace {trace_s:.1f} s (of it "
+          f"{check_s:.1f} s of same-inputs checks, inside the flushes and off "
+          f"the server's clock); solve p50 "
           f"{summary['p50_ms']:.1f} ms, p99 {summary['p99_ms']:.1f} ms, "
           f"{summary['rps']:.2f} req/s; adapted {stats.adapted} rows, "
           f"{stats.refreshes} refreshes over {stats.microbatches} "
@@ -1145,15 +1321,18 @@ def lm_trace(cfg, mode, *, device="cuda", against=None, profile_round=False):
         # one request a round: a burst's three pending requests and their
         # solutions leave too little of the card for the fold's copy
         # beside the profiler
-        profile("one serving round (score pass, solve + fold, update, "
-                f"prefill + {LM_NEW - 1} decode steps)", lambda: serve_trace(
-                    server, h, requests=1, window=LM_WINDOW,
-                    adapt_examples=LM_ADAPT, seq=LM_SEQ, decode_tokens=LM_NEW,
-                    damping=LM_LAM0, lr=LM_LR, burst=1, seed=SEED,
-                    log=lambda line: None))
+        label = ("one serving round (score pass, solve + fold, update, "
+                 f"prefill + {LM_NEW - 1} decode steps)")
+        require_wgmma_attention(label, profile(label, lambda: serve_trace(
+            server, h, requests=1, window=LM_WINDOW,
+            adapt_examples=LM_ADAPT, seq=LM_SEQ, decode_tokens=LM_NEW,
+            damping=LM_LAM0, lr=LM_LR, burst=1, seed=SEED,
+            log=lambda line: None)))
     del server, h
-    return {"records": recs, "xs": xs, "x_err": x_err, "counts": counts,
-            "summary": summary, "m": m}
+    same = {rec["request"]: same_err[rec["uid"]] for rec in recs} \
+        if against is None else {}
+    return {"records": recs, "xs": xs, "x_err": x_err, "same_err": same,
+            "counts": counts, "summary": summary, "m": m}
 
 
 def token_agreement(k_rec, p_rec) -> str:
@@ -1193,14 +1372,21 @@ def lm_serving_path(cfg, device="cuda") -> dict:
         loss_err = abs(rec["loss"] - p_rec["loss"]) / abs(p_rec["loss"])
         worst_loss = max(worst_loss, loss_err)
         x_max, x_l2 = plain["x_err"][rec["request"]]
+        same = kern["same_err"][rec["request"]]
         print(f"  request {rec['request']}: loss {rec['loss']:.5f} (plain "
               f"{p_rec['loss']:.5f}), x vs plain {x_max:.2e} max-abs, "
               f"{x_l2:.2e} in 2-norm"
               f"{'' if rec['request'] < LM_BURST else ' (inputs differ)'}, "
-              f"tokens {token_agreement(rec, p_rec)}", flush=True)
+              f"x vs its v re-solved on the plain route against the kernel "
+              f"run's window {same:.2e} (gate {LM_X_GATE:g}), tokens "
+              f"{token_agreement(rec, p_rec)}",
+              flush=True)
         if not np.isfinite(rec["loss"]) or not loss_err < LM_LOSS_GATE:
             raise AssertionError(f"request {rec['request']}: loss "
                                  f"{rec['loss']} vs plain {p_rec['loss']}")
+        if not same < LM_X_GATE:
+            raise AssertionError(f"request {rec['request']}: x {same:.3e} "
+                                 "from the plain route on the same inputs")
     worst_x = max(plain["x_err"][r][0] for r in range(LM_BURST))
     first_k, first_p = kern["records"][0]["logits"][0], \
         plain["records"][0]["logits"][0]
@@ -1270,8 +1456,9 @@ def long_prefill(cfg, T, device="cuda") -> dict:
     if not (err < FLASH_TOL[q.dtype] and torch.equal(got, again)):
         raise AssertionError(f"long prefill: layer 0 attention {err:.3e}")
     if device == "cuda":
-        profile(f"one {cfg.n_layers}-layer prefill of {T} tokens",
-                lambda: prefill(params, {"tokens": tokens}))
+        label = f"one {cfg.n_layers}-layer prefill of {T} tokens"
+        require_wgmma_attention(label, profile(
+            label, lambda: prefill(params, {"tokens": tokens})))
     return {"counts": counts, "ms": ms}
 
 
@@ -1565,6 +1752,8 @@ def main() -> int:
     timings(torch.bfloat16, PER_MB, bw, flops)
     t32.update(algorithm1_timings(torch.float32, bw, flops, flops))
     algorithm1_timings(torch.bfloat16, bw, flops, bf16_flops)
+    phase("Cholesky times (path A's n)")
+    cholesky_timings(bw, flops)
     phase(f"cholupdate times, k = {SLIDE_K}")
     t32.update(cholupdate_timings(bw, flops))
     phase("flash-attention times (llama3.2-3b layer shape)")

@@ -1,229 +1,482 @@
 // cholesky: L = chol(W), lower triangular, W (n, n) fp32 symmetric positive
-// definite, any n. (The reference caps its kernel at n = 1024, the size its
-// VMEM holds, and gives XLA the rest; nothing here needs that cap.)
+// definite (its lower triangle is read), any n. (The reference caps its
+// kernel at n = 1024, the size its VMEM holds, and gives XLA the rest;
+// nothing here needs that cap.)
 //
 // Replaces src/repro/kernels/cholesky.py:cholesky_pallas, a left-looking
 // panel factorization (panels of 16) inside one kernel invocation, with W,
 // L and the panel in VMEM (16 MB). On the H100 an n = 1024 fp32 W is 4 MB:
-// it fits no block's 227 KB of shared memory, and one block would use one of
-// 132 SMs for the O(n³) correction. So the panel loop moves to the host side
-// of the C entry (one launch per panel on one stream, no host sync) and the
-// matrices stay in device memory, which the 50 MB L2 holds. Each panel
-// [c0, c0 + 16) is one launch of panel_kernel over a grid of
-// (depth slices of t < c0) × (slabs of 64 rows i ≥ c0):
-//
-//   1. every block sums its slice of the correction of its rows,
-//          part[k, i, c] = Σ_{t ∈ slice k} L[i, t]·L[c0 + c, t],
-//      both operands staged in shared memory;
-//   2. the last block of a slab to finish (an integer counter per slab;
-//      the others exit) forms P = W[i, c0 + c] − Σ_k part[k, i, c] with
-//      k ascending, factors the 16 × 16 diagonal block in one warp's
-//      registers (the same bits in every slab: same inputs, same order),
-//      and solves its rows against it. Column j of the panel subtracts the
-//      earlier panel columns in ascending order, then takes the pivot d =
-//      sqrt(max(p, 1e-30)) and scales the rows below it by 1/d, as the TPU
-//      kernel divides them by d.
-//
-// Splitting the depth keeps the late panels, whose correction is long and
-// whose rows are few, spread over many SMs (PERF.md §6 has the versions).
-//
-// Pivots are clamped at 1e-30 as in cholesky.py:63, so a W that is not
-// positive definite gives finite garbage here, where the plain version
-// (torch.linalg.cholesky, like jnp.linalg.cholesky) gives NaN; the two agree
-// on SPD inputs only. A NaN pivot stays NaN. A ragged last panel (n % 16)
-// is masked, which gives the same L as the reference's identity padding.
-// The upper triangle is zeroed once, before the first panel.
+// it fits no block's 227 KB of shared memory, so the matrix stays in device
+// memory (the 50 MB L2 holds it) and the work is spread over the SMs.
 //
 // Bound: n³/3 flop (≈ 3.6·10⁸ at n = 1024, 5 µs at 67 TFLOP/s fp32) and
-// 8n² bytes; in practice the n/16 dependent launches (64 at n = 1024) bound
-// it — latency, not throughput. No float atomics and a fixed summation
-// order: repeats are bit-identical.
+// 8n² bytes. The previous design made one dependent launch per panel of 16
+// (64 at n = 1024, ≈ 13.6 µs each), each ending in a last-block counter and
+// a second pass over partials: latency, not arithmetic, bounded it. Here it
+// is ONE cooperative launch (every block co-resident; the launch refuses
+// rather than deadlocks) walking panels of 64, a right-looking blocked
+// schedule over 64 × 64 tiles:
+//
+// * Every lower tile (I, J) has a fixed owner block (tiles numbered down
+//   the columns, owner = number mod grid). Step 0 copies W's lower tiles
+//   into L (zeroing the upper ones); step c ≥ 1 subtracts panel c − 1
+//   from the tiles of columns J ≥ c: A_IJ −= L_I,c−1 · L_J,c−1ᵀ, fp32 FMAs,
+//   the panel's 64 terms in ascending order.
+// * Lookahead: the owner of the diagonal tile (c, c) updates it first,
+//   factors it in shared memory and publishes L_cc (and its reciprocal
+//   pivots) with a flag, while the other blocks update their tiles of
+//   panel c.
+// * Panel solve: the owner of each (I, c), I > c, after its other updates,
+//   waits for the flag and solves its 64 rows against L_cc.
+// * Both triangular steps go left-looking over blocks of 16 columns in
+//   shared memory: the block subtracts the finished columns (kept also
+//   transposed, so a term is one broadcast load and one float4), a warp
+//   factors its 16 × 16 diagonal block (every lane the whole block in
+//   registers: on a chain of 16 dependent pivots a shuffle costs more
+//   than the arithmetic it would save), and a thread a row solves the rest
+//   against it — four barriers a block of 16, not one a column.
+// * A grid barrier (an integer generation counter, release/acquire) ends
+//   each step; T = ⌈n/64⌉ steps, T − 1 barriers (15 at n = 1024).
+//
+// Column j of a diagonal tile takes the pivot d = p·rsqrt(p), p =
+// max(a_jj, 1e-30) (a NaN pivot stays NaN), as cholesky.py:63 clamps, and
+// scales the entries below it by rsqrt(p) (within two ulps of the TPU
+// kernel's sqrt and division): a W that is not positive definite gives
+// finite garbage where the plain version (torch.linalg.cholesky, like
+// jnp.linalg.cholesky) gives NaN; the two agree on SPD inputs only. A
+// ragged last tile (n % 64) is padded with the identity in shared memory,
+// which gives the same L as the reference's identity padding. No float
+// atomics, a fixed summation order and static ownership: repeats are
+// bit-identical.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kPanel = 16;       // mirrored in kernels/cholesky.py
-constexpr int kSlab = 64;        // rows per block; mirrored in kernels/cholesky.py
-constexpr int kDepth = 64;       // columns t of L per block; mirrored there too
+constexpr int kT = 64;            // tile (panel) size; mirrored in kernels/cholesky.py
 constexpr int kThreads = 256;
-constexpr int kLd = kDepth + 1;  // staged row stride (bank spread)
+constexpr int kLd = kT + 4;       // shared row stride (float4-aligned)
 
-__device__ __forceinline__ float pivot(float p) {
-  return sqrtf(isnan(p) ? p : fmaxf(p, 1e-30f));
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(unsigned* p, unsigned v) {
+  asm volatile("st.release.gpu.global.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
+// All blocks of the grid meet here. sync[0] counts arrivals, sync[1] is the
+// generation; both start at 0 for the launch.
+__device__ void grid_barrier(unsigned* sync, unsigned& generation) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    ++generation;
+    __threadfence();
+    if (atomicAdd(&sync[0], 1u) == gridDim.x - 1) {
+      atomicExch(&sync[0], 0u);
+      __threadfence();
+      st_release(&sync[1], generation);
+    } else {
+      while (ld_acquire(&sync[1]) < generation) {
+      }
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+struct Shared {
+  float a[kT][kLd];   // a tile, row-major: an operand, the diagonal tile, the rows being solved
+  float b[kT][kLd];   // the second operand; or the finished columns, transposed
+  float d[kT];        // the diagonal tile's pivots
+  float rd[kT];       // and their reciprocal square roots
+};
+
+// first tile index ≥ lo that this block owns
+__device__ __forceinline__ int first_owned(int lo) {
+  const int G = gridDim.x;
+  return lo + ((static_cast<int>(blockIdx.x) - lo % G) % G + G) % G;
+}
+
+// index of the first tile of column J (tiles numbered down the columns)
+__device__ __forceinline__ int col_start(int J, int T) { return J * T - J * (J - 1) / 2; }
+
+__device__ __forceinline__ void tile_of(int idx, int T, int& I, int& J) {
+  J = 0;
+  int start = 0;
+  while (idx >= start + (T - J)) {
+    start += T - J;
+    ++J;
+  }
+  I = J + idx - start;
+}
+
+// step 0: the lower tile (I, J) of W into L; the mirrored upper tile (or the
+// diagonal tile's upper part) zero
+__device__ void copy_tile(const float* __restrict__ W, float* L, int n, int I, int J) {
+#pragma unroll 16
+  for (int e = threadIdx.x; e < kT * kT; e += kThreads) {
+    const int i = e / kT, q = e % kT, r = I * kT + i, c = J * kT + q;
+    if (r < n && c < n) L[(size_t)r * n + c] = (I > J || q <= i) ? W[(size_t)r * n + c] : 0.f;
+    if (I > J) {   // (J, I): row J·64 + i, column I·64 + q
+      const int r2 = J * kT + i, c2 = I * kT + q;
+      if (c2 < n) L[(size_t)r2 * n + c2] = 0.f;
+    }
+  }
+}
+
+// dst = the 64 × 64 tile of L at (r0, c0), rows at or past n zero; the
+// columns are those of a full panel (c0 + 64 ≤ n)
+__device__ __forceinline__ void load_tile(float (*dst)[kLd], const float* L, int n, int r0,
+                                          int c0) {
+  const int tid = threadIdx.x;
+  if ((n & 3) == 0) {   // 16-byte rows: a float4 a thread a step
+#pragma unroll
+    for (int u = 0; u < kT * kT / 4 / kThreads; ++u) {
+      const int e = tid + kThreads * u, i = e / 16, k = 4 * (e % 16);
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (r0 + i < n) v = __ldcg(reinterpret_cast<const float4*>(L + (size_t)(r0 + i) * n + c0 + k));
+      *reinterpret_cast<float4*>(&dst[i][k]) = v;
+    }
+  } else {
+#pragma unroll 16
+    for (int e = tid; e < kT * kT; e += kThreads) {
+      const int i = e / kT, k = e % kT;
+      dst[i][k] = r0 + i < n ? __ldcg(L + (size_t)(r0 + i) * n + c0 + k) : 0.f;
+    }
+  }
+}
+
+// dst[k][i] = L[r0 + i][c0 + k]: the tile at (r0, c0) transposed (a full
+// tile: r0 + 64 ≤ n and c0 + 64 ≤ n)
+__device__ __forceinline__ void load_tile_t(float (*dst)[kLd], const float* L, int n, int r0,
+                                            int c0) {
+  const int tid = threadIdx.x;
+  if ((n & 3) == 0) {
+#pragma unroll
+    for (int u = 0; u < kT * kT / 4 / kThreads; ++u) {
+      const int e = tid + kThreads * u, i = e / 16, k = 4 * (e % 16);
+      const float4 v = __ldcg(reinterpret_cast<const float4*>(L + (size_t)(r0 + i) * n + c0 + k));
+      dst[k][i] = v.x;
+      dst[k + 1][i] = v.y;
+      dst[k + 2][i] = v.z;
+      dst[k + 3][i] = v.w;
+    }
+  } else {
+#pragma unroll 16
+    for (int e = tid; e < kT * kT; e += kThreads) {
+      const int i = e / kT, k = e % kT;
+      dst[k][i] = __ldcg(L + (size_t)(r0 + i) * n + c0 + k);
+    }
+  }
+}
+
+// A_IJ −= L_Ic · L_Jcᵀ over the 64 columns of panel c (c < T − 1: a full
+// panel), each entry's 64 terms in ascending order. Thread (ty, tx) owns
+// rows ty + 16r and columns tx + 16s. The tile goes back to L (a diagonal
+// tile its lower part), or with `keep` (the diagonal tile factor_diag takes
+// next) stays in sh.a: row-major, lower part, identity past n.
+__device__ void update_tile(Shared& sh, float* L, int n, int I, int J, int c, bool keep) {
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  float acc[4][4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const int i = I * kT + ty + 16 * r, q = J * kT + tx + 16 * s;
+      acc[r][s] = (i < n && q < n) ? __ldcg(L + (size_t)i * n + q) : 0.f;
+    }
+  load_tile(sh.a, L, n, I * kT, c * kT);
+  load_tile(sh.b, L, n, J * kT, c * kT);
+  __syncthreads();
+#pragma unroll 4
+  for (int k = 0; k < kT; k += 4) {
+    float4 x[4], y[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) x[r] = *reinterpret_cast<const float4*>(&sh.a[ty + 16 * r][k]);
+#pragma unroll
+    for (int s = 0; s < 4; ++s) y[s] = *reinterpret_cast<const float4*>(&sh.b[tx + 16 * s][k]);
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        float t = acc[r][s];
+        t = fmaf(-x[r].x, y[s].x, t);
+        t = fmaf(-x[r].y, y[s].y, t);
+        t = fmaf(-x[r].z, y[s].z, t);
+        t = fmaf(-x[r].w, y[s].w, t);
+        acc[r][s] = t;
+      }
+  }
+  __syncthreads();   // the operand tiles are free again
+  if (keep) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        const int li = ty + 16 * r, lq = tx + 16 * s, i = I * kT + li;
+        sh.a[li][lq] = i < n ? (lq <= li ? acc[r][s] : 0.f) : (li == lq ? 1.f : 0.f);
+      }
+    __syncthreads();
+    return;
+  }
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const int li = ty + 16 * r, lq = tx + 16 * s, i = I * kT + li, q = J * kT + lq;
+      if (i < n && q < n && (I > J || lq <= li)) L[(size_t)i * n + q] = acc[r][s];
+    }
+}
+
+// The two triangular kernels below work on a 64 × 64 tile x in shared
+// memory, left-looking over blocks of 16 columns j0 = 0, 16, 32, 48, with
+// the finished columns also kept transposed (yT[t][j] = L[j][t]), so that
+// a thread reads one x entry and four adjacent yT entries a term: first
+// every entry of the block subtracts the finished columns t < j0 (t
+// ascending), then a thread a row finishes its 16 entries by substitution
+// against the block's 16 × 16 diagonal factor D — x_j ·= 1/d_j, then
+// x_k −= x_j·D_kj for k > j — so each entry sees the terms t = 0, 1, … in
+// order, as a right-looking sweep would.
+
+// x[i][j] −= Σ_{t < j0} x[i][t]·yT[t][j] for rows i ∈ [i0, 64) and the 16
+// block columns j (above the diagonal too: those entries are never read):
+// a thread a row and 4 adjacent columns
+__device__ __forceinline__ void block_left(float (*x)[kLd], const float (*yT)[kLd], int i0,
+                                           int j0) {
+  const int i = i0 + threadIdx.x / 4, jq = j0 + 4 * (threadIdx.x % 4);
+  if (j0 == 0 || i >= kT) return;
+  float a[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) a[r] = x[i][jq + r];
+#pragma unroll 4
+  for (int t = 0; t < j0; ++t) {
+    const float u = x[i][t];
+    const float4 v = *reinterpret_cast<const float4*>(&yT[t][jq]);
+    a[0] = fmaf(-u, v.x, a[0]);
+    a[1] = fmaf(-u, v.y, a[1]);
+    a[2] = fmaf(-u, v.z, a[2]);
+    a[3] = fmaf(-u, v.w, a[3]);
+  }
+#pragma unroll
+  for (int r = 0; r < 4; ++r) x[i][jq + r] = a[r];
+}
+
+// rows i ∈ [i0, 64) of block j0: substitution against the diagonal factor
+// D (D_kj = yT[j0 + j][j0 + k]) with reciprocal pivots rd[j0..]; a thread
+// a row
+__device__ __forceinline__ void block_solve(float (*x)[kLd], const float (*yT)[kLd],
+                                            const float* rd, int i0, int j0) {
+  const int i = i0 + threadIdx.x;
+  if (i >= kT) return;
+  float v[16];
+#pragma unroll
+  for (int k = 0; k < 16; ++k) v[k] = x[i][j0 + k];
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    v[j] *= rd[j0 + j];
+#pragma unroll
+    for (int k = j + 1; k < 16; ++k) v[k] = fmaf(-v[j], yT[j0 + j][j0 + k], v[k]);
+  }
+#pragma unroll
+  for (int k = 0; k < 16; ++k) x[i][j0 + k] = v[k];
+}
+
+// warp 0 factors the 16 × 16 diagonal block at (j0, j0) of x: every lane
+// holds the whole lower block in registers and factors it itself (no
+// shuffles or shared memory on the column-to-column chain; a shuffle costs
+// more than the arithmetic it would save), then lane l writes row l (to x,
+// and transposed to yT).
+// d = p·rsqrt(p) with p clamped at 1e-30 (a NaN stays NaN); the entries
+// below scale by rsqrt(p).
+__device__ __forceinline__ void block_factor(float (*x)[kLd], float (*yT)[kLd], float* d,
+                                             float* rd, int j0) {
+  const int l = threadIdx.x;
+  float m[16][16];   // lower part only
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+#pragma unroll
+    for (int k = 0; k <= i; ++k) m[i][k] = x[j0 + i][j0 + k];
+  float r[16];
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const float p = m[j][j] < 1e-30f ? 1e-30f : m[j][j];   // NaN fails the test
+    r[j] = rsqrtf(p);
+    m[j][j] = p * r[j];
+#pragma unroll
+    for (int i = j + 1; i < 16; ++i) m[i][j] *= r[j];
+#pragma unroll
+    for (int i = j + 1; i < 16; ++i)
+#pragma unroll
+      for (int k = j + 1; k <= i; ++k) m[i][k] = fmaf(-m[i][j], m[k][j], m[i][k]);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+    if (i == l) {
+#pragma unroll
+      for (int k = 0; k <= i; ++k) {
+        x[j0 + i][j0 + k] = m[i][k];
+        yT[j0 + k][j0 + i] = m[i][k];
+      }
+      d[j0 + i] = m[i][i];
+      rd[j0 + i] = r[i];
+    }
+}
+
+// factor the diagonal tile (c, c) of L in place; its reciprocal pivots go
+// to rdiag[c·64 ..] for the panel's solves. `in_smem`: update_tile left the
+// tile in sh.a; else it is read from L. A ragged tile (w < 64) is padded
+// with the identity, as the reference pads W.
+__device__ void factor_diag(Shared& sh, float* L, float* rdiag, int n, int c, bool in_smem) {
+  const int tid = threadIdx.x;
+  const int w = min(kT, n - c * kT);
+  float* base = L + (size_t)(c * kT) * n + c * kT;
+  if (!in_smem) {
+#pragma unroll 16
+    for (int e = tid; e < kT * kT; e += kThreads) {
+      const int i = e / kT, q = e % kT;
+      sh.a[i][q] = (i < w && q <= i) ? __ldcg(base + (size_t)i * n + q) : (i == q ? 1.f : 0.f);
+    }
+    __syncthreads();
+  }
+  for (int j0 = 0; j0 < kT; j0 += 16) {
+    block_left(sh.a, sh.b, j0, j0);
+    __syncthreads();
+    if (tid < 32) block_factor(sh.a, sh.b, sh.d, sh.rd, j0);
+    __syncthreads();
+    block_solve(sh.a, sh.b, sh.rd, j0 + 16, j0);
+    __syncthreads();
+    for (int e = tid; e < 16 * (kT - j0 - 16); e += kThreads) {   // the block's rows below D
+      const int j = j0 + 16 + e / 16, t = j0 + e % 16;
+      sh.b[t][j] = sh.a[j][t];
+    }
+    __syncthreads();
+  }
+  if ((n & 3) == 0 && w == kT) {   // whole rows, zeros above the diagonal
+#pragma unroll
+    for (int u = 0; u < kT * kT / 4 / kThreads; ++u) {
+      const int e = tid + kThreads * u, i = e / 16, q = 4 * (e % 16);
+      float4 v = *reinterpret_cast<const float4*>(&sh.a[i][q]);
+      v.x = q <= i ? v.x : 0.f;
+      v.y = q + 1 <= i ? v.y : 0.f;
+      v.z = q + 2 <= i ? v.z : 0.f;
+      v.w = q + 3 <= i ? v.w : 0.f;
+      *reinterpret_cast<float4*>(base + (size_t)i * n + q) = v;
+    }
+  } else {
+#pragma unroll 16
+    for (int e = tid; e < kT * kT; e += kThreads) {
+      const int i = e / kT, q = e % kT;
+      if (i < w && q <= i) base[(size_t)i * n + q] = sh.a[i][q];
+    }
+  }
+  if (tid < kT) rdiag[c * kT + tid] = sh.rd[tid];
+  __syncthreads();
+}
+
+// L_Ic = A_Ic · L_cc⁻ᵀ for the 64 rows of tile I (c < T − 1: full width)
+__device__ void solve_tile(Shared& sh, float* L, const float* rdiag, int n, int I, int c) {
+  const int tid = threadIdx.x;
+  float* base = L + (size_t)(I * kT) * n + c * kT;
+  load_tile(sh.a, L, n, I * kT, c * kT);
+  load_tile_t(sh.b, L, n, c * kT, c * kT);
+  if (tid < kT) sh.rd[tid] = __ldcg(rdiag + c * kT + tid);
+  __syncthreads();
+  for (int j0 = 0; j0 < kT; j0 += 16) {
+    block_left(sh.a, sh.b, 0, j0);
+    __syncthreads();
+    block_solve(sh.a, sh.b, sh.rd, 0, j0);
+    __syncthreads();
+  }
+  const int rows = min(kT, n - I * kT);
+#pragma unroll 16
+  for (int e = tid; e < kT * kT; e += kThreads) {
+    const int i = e / kT, q = e % kT;
+    if (i < rows) base[(size_t)i * n + q] = sh.a[i][q];
+  }
+  __syncthreads();
 }
 
 __global__ void __launch_bounds__(kThreads)
-panel_kernel(const float* __restrict__ W, float* __restrict__ L, float* part,
-             float* dpart, unsigned int* counters, int n, int c0, int pw) {
-  __shared__ float a[kSlab][kLd];         // L[row0 + r, t0 + kk]
-  __shared__ float b[kPanel][kLd];        // L[c0 + c, t0 + kk]
-  __shared__ float p[kSlab][kPanel + 1];  // corrected rows of the slab
-  __shared__ float d[kPanel][kPanel + 1]; // the diagonal block, then its factor
-  __shared__ float rd[kPanel];            // reciprocals of the factor's pivots
-  __shared__ bool last;
-  const int K = gridDim.x;
-  const int k = blockIdx.x, slab = blockIdx.y;
-  const int row0 = c0 + slab * kSlab;
-  const int tid = threadIdx.x;
-
-  // 1. this block's slice of the correction: 4 rows of the slab and one
-  // element of the diagonal block per thread. Every slab sums the diagonal
-  // block's slice itself (from the staged panel rows), so its last block
-  // needs no other slab's partials.
-  float* dslice = dpart + ((size_t)slab * K + k) * kPanel * kPanel;
-  {
-    const int c = tid & 15, r = tid >> 4;
-    const int t0 = k * kDepth, t1 = min(c0, t0 + kDepth);
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-    float dacc = 0.f;
-    if (t0 < t1) {
-#pragma unroll
-      for (int q = 0; q < kSlab * kDepth / kThreads; ++q) {
-        const int e = tid + kThreads * q, rr = e / kDepth, kk = e % kDepth;
-        const int i = row0 + rr, t = t0 + kk;
-        a[rr][kk] = (i < n && t < t1) ? L[(size_t)i * n + t] : 0.f;
-      }
-#pragma unroll
-      for (int q = 0; q < kPanel * kDepth / kThreads; ++q) {
-        const int e = tid + kThreads * q, cc = e / kDepth, kk = e % kDepth;
-        const int t = t0 + kk;
-        b[cc][kk] = (cc < pw && t < t1) ? L[(size_t)(c0 + cc) * n + t] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 16
-      for (int kk = 0; kk < kDepth; ++kk) {
-        const float y = b[c][kk];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[q] = fmaf(a[r + 16 * q][kk], y, acc[q]);
-        dacc = fmaf(b[r][kk], y, dacc);
-      }
-    }
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int i = row0 + r + 16 * q;
-      if (i < n) part[((size_t)k * n + (i - c0)) * kPanel + c] = acc[q];
-    }
-    dslice[tid] = dacc;                      // kThreads == kPanel²
-  }
-
-  // 2. the last block of this slab finishes it
-  __threadfence();
-  __syncthreads();
-  if (tid == 0) last = atomicAdd(&counters[slab], 1u) == (unsigned)K - 1;
-  __syncthreads();
-  if (!last) return;
-  if (tid == 0) counters[slab] = 0;   // ready for the next panel's launch
-  __threadfence();
-  {
-    // P = W − Σ_k partials (k ascending) for the thread's four elements of
-    // the slab and one of the diagonal block, summed together so that
-    // their loads (L2 hits) are in flight at once
-    const int c = tid & 15, r = tid >> 4;
-    const float* dsum = dpart + (size_t)slab * K * kPanel * kPanel + tid;
-    float s[4] = {0.f, 0.f, 0.f, 0.f}, ds = 0.f;
-#pragma unroll 4
-    for (int kk = 0; kk < K; ++kk) {
-      const float* pk = part + (size_t)kk * n * kPanel;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int i = row0 + r + 16 * q;
-        if (i < n) s[q] += __ldcg(pk + (size_t)(i - c0) * kPanel + c);
-      }
-      ds += __ldcg(dsum + (size_t)kk * kPanel * kPanel);
-    }
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int i = row0 + r + 16 * q;
-      p[r + 16 * q][c] = (i < n && c < pw) ? W[(size_t)i * n + c0 + c] - s[q] : 0.f;
-    }
-    d[r][c] = (c0 + r < n && c < pw) ? W[(size_t)(c0 + r) * n + c0 + c] - ds : 0.f;
-  }
-  __syncthreads();
-  if (tid < 32) {
-    // warp 0 factors the diagonal block: lane l holds row l in registers,
-    // column j's pivot and entries come by shuffle. Rows are scaled by the
-    // pivot's reciprocal (within an ulp of the TPU kernel's division): a
-    // division is a subroutine call on the dependency chain.
-    const int l = tid;
-    float x[kPanel];
-#pragma unroll
-    for (int c = 0; c < kPanel; ++c) x[c] = l < kPanel ? d[l][c] : 0.f;
-#pragma unroll
-    for (int j = 0; j < kPanel; ++j) {
-      if (j < pw) {
-        const float dj = pivot(__shfl_sync(0xffffffffu, x[j], j));
-        const float rj = __frcp_rn(dj);
-        if (l > j) x[j] *= rj;
-        if (l == j) {
-          x[j] = dj;
-          rd[j] = rj;
-        }
-#pragma unroll
-        for (int q = j + 1; q < kPanel; ++q) {
-          const float lqj = __shfl_sync(0xffffffffu, x[j], q);
-          if (l >= q) x[q] -= x[j] * lqj;
-        }
-      }
-    }
-    if (l < kPanel) {
-#pragma unroll
-      for (int c = 0; c < kPanel; ++c) d[l][c] = x[c];
-    }
-  }
-  __syncthreads();
-  if (tid < kSlab) {                       // one row of the slab per thread
-    const int i = row0 + tid;
-    if (i < n) {
-      float x[kPanel];
-      const int l = i - c0;
-      if (l < pw) {                        // inside the diagonal block
-#pragma unroll
-        for (int c = 0; c < kPanel; ++c) x[c] = c <= l ? d[l][c] : 0.f;
+cholesky_kernel(const float* __restrict__ W, float* L, float* rdiag, unsigned* sync,
+                int n) {
+  __shared__ __align__(16) Shared sh;
+  const int T = (n + kT - 1) / kT, total = col_start(T, T);
+  const int G = gridDim.x;
+  unsigned* flags = sync + 2;   // flags[c]: L_cc is published
+  unsigned generation = 0;
+  for (int c = 0; c < T; ++c) {
+    const int cs = col_start(c, T), ce = col_start(c + 1, T);
+    // the diagonal tile first: update (or copy), factor, publish
+    if (cs % G == static_cast<int>(blockIdx.x)) {
+      if (c == 0) {
+        copy_tile(W, L, n, 0, 0);
+        __syncthreads();
       } else {
-#pragma unroll
-        for (int c = 0; c < kPanel; ++c) x[c] = p[tid][c];
-#pragma unroll
-        for (int j = 0; j < kPanel; ++j) {
-          if (j < pw) {
-            x[j] *= rd[j];
-#pragma unroll
-            for (int q = j + 1; q < kPanel; ++q) x[q] -= x[j] * d[q][j];
-          }
-        }
+        update_tile(sh, L, n, c, c, c - 1, true);
       }
-#pragma unroll
-      for (int c = 0; c < kPanel; ++c)
-        if (c < pw) L[(size_t)i * n + c0 + c] = x[c];
+      factor_diag(sh, L, rdiag, n, c, c > 0);
+      if (threadIdx.x == 0) {
+        __threadfence();
+        st_release(flags + c, 1u);
+      }
     }
+    // then every other owned tile of columns ≥ c, panel c's first
+    for (int idx = first_owned(cs + 1); idx < total; idx += G) {
+      int I, J;
+      tile_of(idx, T, I, J);
+      if (c == 0) copy_tile(W, L, n, I, J);
+      else update_tile(sh, L, n, I, J, c - 1, false);
+    }
+    // then panel c's solves, once L_cc is out
+    bool waited = false;
+    for (int idx = first_owned(cs + 1); idx < ce; idx += G) {
+      if (!waited) {
+        __syncthreads();
+        if (threadIdx.x == 0) {
+          while (ld_acquire(flags + c) == 0u) {
+          }
+          __threadfence();
+        }
+        __syncthreads();
+        waited = true;
+      }
+      solve_tile(sh, L, rdiag, n, c + idx - cs, c);
+    }
+    if (c + 1 < T) grid_barrier(sync, generation);
   }
 }
 
 }  // namespace
 
-// W (n, n) fp32; scratch: S = ceil(n/64) slices of (n, 16) row partials,
-// then S·S slices of (16, 16) diagonal partials (fp32), and S uint32 slab
-// counters; L (n, n) fp32 output (every element is written). Two memsets
-// and ceil(n/16) launches on `stream`.
-extern "C" int cholesky_launch(const void* W, void* scratch, void* counters, void* L, int n,
+// W (n, n) fp32 (lower triangle read); L (n, n) fp32 output, every element
+// written; rdiag: 64·⌈n/64⌉ fp32 (the reciprocal pivots); sync: ⌈n/64⌉ + 2
+// uint32 (zeroed here). One memset and one cooperative launch on `stream`,
+// its grid every block that fits co-resident (at most one a tile).
+extern "C" int cholesky_launch(const void* W, void* L, void* rdiag, void* sync, int n,
                                void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n < 1) return cudaErrorInvalidValue;
+  const int T = (n + kT - 1) / kT, tiles = T * (T + 1) / 2;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, cholesky_kernel, kThreads, 0);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorLaunchOutOfResources;
+  const int grid = tiles < sms * per_sm ? tiles : sms * per_sm;
+  err = cudaMemsetAsync(sync, 0, (size_t)(T + 2) * sizeof(unsigned), st);
+  if (err != cudaSuccess) return err;
   const float* w = static_cast<const float*>(W);
-  const int slabs_max = (n + kSlab - 1) / kSlab;
-  float* pp = static_cast<float*>(scratch);
-  float* dp = pp + (size_t)slabs_max * n * kPanel;
-  unsigned int* cnt = static_cast<unsigned int*>(counters);
   float* l = static_cast<float*>(L);
-  cudaError_t err = cudaMemsetAsync(l, 0, (size_t)n * n * sizeof(float), st);
+  float* r = static_cast<float*>(rdiag);
+  unsigned* s = static_cast<unsigned*>(sync);
+  void* args[] = {&w, &l, &r, &s, &n};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(cholesky_kernel), grid,
+                                    kThreads, args, 0, st);
   if (err != cudaSuccess) return err;
-  err = cudaMemsetAsync(cnt, 0, (size_t)slabs_max * sizeof(unsigned int), st);
-  if (err != cudaSuccess) return err;
-  for (int c0 = 0; c0 < n; c0 += kPanel) {
-    const int pw = n - c0 < kPanel ? n - c0 : kPanel;
-    const int slices = c0 > 0 ? (c0 + kDepth - 1) / kDepth : 1;
-    const dim3 grid(slices, (n - c0 + kSlab - 1) / kSlab);
-    panel_kernel<<<grid, kThreads, 0, st>>>(w, l, pp, dp, cnt, n, c0, pw);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
-  return cudaSuccess;
+  return cudaGetLastError();
 }

@@ -8,8 +8,8 @@
 // Replaces src/repro/kernels/flash_attention.py:flash_attention_pallas
 // (_flash_kernel). On the TPU the grid's KV axis runs in order on one core
 // and the (bq, hd) accumulator and the (bq,) statistics persist in VMEM
-// scratch across it. Here one block owns one (batch·head, 64-row q tile)
-// and walks the KV tiles itself, in ascending order, so a repeat is
+// scratch across it. Here one block owns one (batch·head, q tile) and
+// walks the KV tiles itself, in ascending order, so a repeat is
 // bit-identical; the accumulator and statistics live in registers.
 //
 // Layout: the model's, q (B, Tq, H, hd) and k, v (B, Tk, KH, hd), read in
@@ -22,16 +22,20 @@
 // key), so a row with no live key at all gives l = 0 and an output of 0.
 //
 // Bound: operations (4·hd flop per live (q, k) pair; ≈ 200 flop per byte
-// read at 32k tokens). Two kernels:
-// * bf16 with hd ≤ 128 (the LM's prefill) runs the products on the tensor
-//   cores, mma.sync m16n8k16 with fp32 sums (flash_mma_kernel, below);
-// * fp32, and bf16 at hd 256, run them as fp32 FMAs on the CUDA cores
-//   (flash_fwd_kernel): tiles widened to fp32 in shared memory, each of
-//   256 threads owning a 4 × 4 patch of the 64 × 64 score tile and a
+// read at 32k tokens), at 989 TFLOP/s for bf16 operands. Three kernels:
+// * bf16 at hd 64 and 128 (the LM's head dims): flash_wgmma_kernel
+//   (flash_wgmma.cuh) — wgmma fed by TMA, one producer warp and two
+//   consumer warpgroups a 128-row q tile, 128-key tiles in a ring of two;
+//   its note says what it does about the bound;
+// * bf16 at hd 16 and 32: flash_mma_kernel (below), mma.sync m16n8k16
+//   with fp32 sums, 64-row q tiles and 64-key tiles loaded synchronously;
+// * fp32, and bf16 at hd 256, run the products as fp32 FMAs on the CUDA
+//   cores (flash_fwd_kernel): tiles widened to fp32 in shared memory, each
+//   of 256 threads owning a 4 × 4 patch of the 64 × 64 score tile and a
 //   4 × (hd/16) patch of the accumulator, row statistics reduced across
 //   the 16 lanes of a half-warp.
-// wgmma with TMA-fed, double-buffered tiles is the next step.
 #include "common.cuh"
+#include "flash_wgmma.cuh"
 
 #include <cstdint>
 
@@ -228,7 +232,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on the tensor cores: mma.sync m16n8k16 (bf16 operands, fp32 sums).
+// bf16 at hd 16 and 32 on mma.sync m16n8k16 (bf16 operands, fp32 sums).
 // 4 warps, each owning 16 of the tile's 64 q rows; the warp's Q fragments
 // stay in registers for the whole KV sweep. Per KV tile: S = Q·Kᵀ as 8
 // n-tiles of 8 keys (HD/16 MMAs each), the online softmax on the MMA's
@@ -463,12 +467,12 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B < 1 || KH < 1 || H % KH || Tq < 1 || Tk < 1 || B * H > 65535)
     return cudaErrorInvalidValue;
-  if (bf16) {   // the tensor cores up to hd 128; hd 256 keeps the CUDA-core kernel
+  if (bf16) {   // wgmma at hd 64 and 128, mma.sync at 16 and 32, the CUDA cores at 256
     switch (hd) {
       case 16: return launch_mma<16>(q, k, v, o, B, H, KH, Tq, Tk, scale, causal, window, st);
       case 32: return launch_mma<32>(q, k, v, o, B, H, KH, Tq, Tk, scale, causal, window, st);
-      case 64: return launch_mma<64>(q, k, v, o, B, H, KH, Tq, Tk, scale, causal, window, st);
-      case 128: return launch_mma<128>(q, k, v, o, B, H, KH, Tq, Tk, scale, causal, window, st);
+      case 64: return fa3::launch<64>(q, k, v, o, B, H, KH, Tq, Tk, scale, causal, window, st);
+      case 128: return fa3::launch<128>(q, k, v, o, B, H, KH, Tq, Tk, scale, causal, window, st);
       default: return dispatch<__nv_bfloat16>(q, k, v, o, B, H, KH, Tq, Tk, hd, scale, causal, window, st);
     }
   }

@@ -247,11 +247,16 @@ def ngd_apply(S: torch.Tensor, w: torch.Tensor, v: torch.Tensor, lam, *,
     return ref.ngd_apply_ref(S, w, v, lam)
 
 
-def cholesky(W: torch.Tensor, *, mode: Optional[str] = None) -> torch.Tensor:
-    """L = chol(W), lower, fp32. The panel kernel takes every n (the
+def cholesky(W: torch.Tensor, *, mode: Optional[str] = None,
+             panel: int = 16) -> torch.Tensor:
+    """L = chol(W), lower, fp32. The kernel (one launch) takes every n (the
     reference's n ≤ 1024 cap is the TPU's VMEM; this kernel works in device
     memory). Pivots in the kernel are clamped at 1e-30, where the plain
-    version gives NaN for a W that is not positive definite."""
+    version gives NaN for a W that is not positive definite. ``panel`` is
+    the reference's TPU panel width, taken for signature parity: the CUDA
+    kernel's panel is fixed (``cholesky.PANEL``, 64 columns) and the plain
+    version has none."""
+    del panel
     if _use_kernel(mode, W):
         return _chol.cholesky_cuda(_f32(W).contiguous())
     return ref.cholesky_ref(W)
@@ -325,10 +330,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     model layout: q (B, Tq, H, hd), k and v (B, Tk, KH, hd), H % KH == 0;
     returns (B, Tq, H, hd) in q's dtype. p is rounded to v's dtype before
     P·V, as the TPU kernel does. ``bq``/``bk`` are the reference's TPU
-    tile sizes, taken for signature parity: the CUDA kernel's tiles are
-    fixed (64 × 64), and the plain version uses the kernel's KV tile.
-    Ragged Tq and Tk are masked, never padded (the reference asserts
-    Tk % bk == 0)."""
+    tile sizes, taken for signature parity: the CUDA kernels fix their own
+    tiles (128 q rows × 128 keys for bf16 at hd 64 and 128, 64 × 64
+    otherwise), and the plain version walks the same KV tiles
+    (``ref.flash_kv_tile``). Ragged Tq and Tk are masked, never padded (the
+    reference asserts Tk % bk == 0). On CUDA the shapes must be ones
+    ``flash_attention.supported`` accepts, or the kernel wrapper raises."""
     del bq, bk
     if _use_kernel(mode, q, k, v):
         return _flash.flash_attention_cuda(

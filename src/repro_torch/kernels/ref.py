@@ -119,15 +119,24 @@ def fold_cols_ref(S: torch.Tensor, rows: torch.Tensor):
 
 
 NEG = -0.7 * float(torch.finfo(torch.float32).max)
-FLASH_BK = 64            # the CUDA kernel's KV tile (kBK, csrc/flash_attention.cu)
+FLASH_BK = 64            # the CUDA kernels' KV tile (kBK, csrc/flash_attention.cu),
+FLASH_BK_WGMMA = 128     # and the wgmma kernel's (fa3::kBN, csrc/flash_wgmma.cuh)
+WGMMA_HEAD_DIMS = (64, 128)
+
+
+def flash_kv_tile(dtype: torch.dtype, hd: int) -> int:
+    """The KV tile of the kernel that takes q of ``dtype`` at head dim
+    ``hd``: 128 keys for bf16 at hd 64 and 128 (wgmma), else 64."""
+    return FLASH_BK_WGMMA if dtype == torch.bfloat16 and \
+        hd in WGMMA_HEAD_DIMS else FLASH_BK
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window=None,
                         scale=None) -> torch.Tensor:
     """The flash-attention kernel's function in plain PyTorch: KV tiles of
-    the kernel's ``FLASH_BK`` keys in ascending order, s = (q·kᵀ)·scale in fp32, masked scores
-    at NEG, running max and sum in fp32, p = exp(s − m) (0 for a masked
+    the kernel's size (``flash_kv_tile``) in ascending order, s =
+    (q·kᵀ)·scale in fp32, masked scores at NEG, running max and sum in fp32, p = exp(s − m) (0 for a masked
     key) rounded to v's dtype before P·V, o = acc / max(l, 1e-30) in q's
     dtype. q (B, Tq, H, hd); k, v (B, Tk, KH, hd), H % KH == 0; query
     positions start at 0 (the TPU kernel's layout), ragged Tk is fine."""
@@ -143,10 +152,11 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     m = torch.full((B, KH, Tq, g), NEG, dtype=f32, device=dev)
     l = torch.zeros((B, KH, Tq, g), dtype=f32, device=dev)
     acc = torch.zeros((B, KH, Tq, g, hd), dtype=f32, device=dev)
-    for k0 in range(0, Tk, FLASH_BK):
+    bk = flash_kv_tile(q.dtype, hd)
+    for k0 in range(0, Tk, bk):
         if causal and k0 > Tq - 1:
             break                    # wholly above the diagonal, as later ones
-        k1 = min(k0 + FLASH_BK, Tk)
+        k1 = min(k0 + bk, Tk)
         kj = k[:, k0:k1].to(f32).permute(0, 2, 1, 3)           # (B, KH, bk, hd)
         vj = v[:, k0:k1].permute(0, 2, 1, 3)
         s = (qh @ kj.transpose(-1, -2)).reshape(B, KH, Tq, g, k1 - k0) * scale

@@ -13,11 +13,16 @@ drivers loop over the repeats in Python and index the stacked leaves
 
 Prefill routes a layer's self-attention through the flash-attention
 kernel (``kernels.ops.flash_attention``) exactly when the call is one the
-TPU kernel computes: no softcap, no ``q_offset``/``kv_len``/
-``k_positions`` (prefill never has those three). Every other call — the
-train and score passes (no backward kernel), decode (``kv_len``, ring
-positions), a softcapped model — runs the blockwise attention of
-``models.layers``, as the reference does everywhere.
+TPU kernel computes and the CUDA kernels take (``_kernel_route``): no
+softcap; no ``attn_bf16`` rounding of fp32 operands (a bf16 model's
+operands already are bf16); no ``q_offset``/``kv_len``/``k_positions``
+(prefill never has those three); shapes ``flash_attention.supported``
+accepts. Every other call — the train and score passes (no backward
+kernel), decode (``kv_len``, ring positions), a softcapped model, an fp32
+model with ``attn_bf16``, a head_dim the kernels lack — runs the
+blockwise attention of ``models.layers``, as the reference does
+everywhere. The rule reads shapes, dtypes and the config only, so it
+routes a CPU run as it routes the card's.
 
 Initialization draws from an explicit ``torch.Generator`` with the
 reference's shapes, scales and dtypes (not its bits: ``jax.random`` and
@@ -32,6 +37,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.pytree import tree_map
 from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import supported as flash_supported
 from repro_torch.models import layers as L
 from repro_torch.models.config import BlockSlot, ModelConfig
 
@@ -147,6 +153,16 @@ def init_params(gen: torch.Generator, cfg: ModelConfig):
 # block body (shared by all three drivers)
 # ---------------------------------------------------------------------------
 
+def _kernel_route(q, k, cfg) -> bool:
+    """Whether a prefill layer's attention takes ``ops.flash_attention``:
+    no softcap (the TPU kernel has none), no ``attn_bf16`` rounding of
+    fp32 operands (the blockwise attention rounds q·scale, k, v and p as
+    the reference's ``bf16_operands`` does), and shapes the kernels take."""
+    return (cfg.attn_softcap is None
+            and not (cfg.attn_bf16 and q.dtype != torch.bfloat16)
+            and flash_supported(q, k))
+
+
 def _self_attn(slot, p, x, cfg, *, positions, mode, cache=None,
                cache_index=None):
     """Returns (attn_out, cache_out).
@@ -182,7 +198,7 @@ def _self_attn(slot, p, x, cfg, *, positions, mode, cache=None,
                 q_offset=cache_index, kv_len=cache_index + 1,
                 kv_block=min(512, S))
         cache_out = cache
-    elif mode == "prefill" and cfg.attn_softcap is None:
+    elif mode == "prefill" and _kernel_route(q, k, cfg):
         out = ops.flash_attention(q, k, v, causal=not slot.bidirectional,
                                   window=slot.window, scale=cfg.query_scale)
         cache_out = {"k": k, "v": v}

@@ -17,8 +17,9 @@ name in ``repro_torch.core.SOLVERS`` or any ``f(S, v, λ) -> x``, e.g.
 kernels on CUDA tensors.
 
 ``curvature=`` takes ``None`` or ``"exact"`` (solve from scratch every
-step, the paper's method). A streaming curvature policy comes with the
-port's curvature slice and raises ``NotImplementedError`` until then.
+step, the paper's method). The streaming policies themselves are ported
+(``repro_torch.curvature``); taking one here waits on the NGD trainer
+slice (ROADMAP A1) and raises ``NotImplementedError`` until then.
 """
 from __future__ import annotations
 
@@ -83,9 +84,9 @@ class NaturalGradient:
         if curvature not in (None, "exact"):
             raise NotImplementedError(
                 "curvature= takes None or 'exact' in the torch port; the "
-                "streaming curvature policies come with the port's curvature "
-                "slice (repro/curvature/streaming.py, cache.py); got "
-                + repr(curvature))
+                "streaming policies of the curvature slice "
+                "(repro_torch.curvature) reach the optimizer with the NGD "
+                "trainer slice (ROADMAP A1); got " + repr(curvature))
 
     def init(self, params) -> NGDState:
         return NGDState(

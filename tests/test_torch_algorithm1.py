@@ -416,9 +416,11 @@ def test_cuda_kernels_match_plain(shape, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1024, 2048])
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 64, 65, 100, 1024, 2048, 4096])
 def test_cuda_cholesky_matches_plain_beyond_reference_cap(n):
-    """The reference gives XLA n > 1024; the port's kernel takes every n."""
+    """The reference gives XLA n > 1024; the port's kernel takes every n:
+    one ragged 64-wide tile (1, 15, 17), exactly one (16, 64), a ragged
+    second (65, 100), and many (one cooperative launch either way)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (runs on the H100 via chip_smoke "
                     "and `pytest -m cuda`)")

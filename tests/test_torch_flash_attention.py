@@ -136,18 +136,23 @@ def test_dispatch_rules():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd", [32, 128])
+@pytest.mark.parametrize("hd", [32, 64, 128])
 def test_cuda_kernel_matches_plain(dtype, hd):
+    """bf16 at hd 64 and 128 is the wgmma + TMA kernel (128-row q tiles,
+    128-key tiles): T = 1000 and the ragged (Tq, Tk) pairs cross its tile
+    edges; B = 2 keeps a box from reading the next batch's rows."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run on the card: chip_smoke.py "
                     "and `pytest -m cuda`)")
     g = torch.Generator(device="cuda").manual_seed(hd)
     tol = F32_TOL if dtype == torch.float32 else BF16_TOL
     for KH, grp in GQA + [(8, 3)]:
-        for T in (16, 200, 256):
-            q, k, v = (torch.randn((2, T, heads, hd), generator=g,
-                                   device="cuda").to(dtype)
-                       for heads in (KH * grp, KH, KH))
+        for Tq, Tk in ((16, 16), (200, 200), (256, 256), (1000, 1000),
+                       (300, 1000), (1000, 300), (129, 255)):
+            q = torch.randn((2, Tq, KH * grp, hd), generator=g,
+                            device="cuda").to(dtype)
+            k, v = (torch.randn((2, Tk, KH, hd), generator=g,
+                                device="cuda").to(dtype) for _ in range(2))
             for causal, window in MASKS:
                 got = ops.flash_attention(q, k, v, causal=causal,
                                           window=window, mode="kernel")
@@ -157,4 +162,11 @@ def test_cuda_kernel_matches_plain(dtype, hd):
                                            window=window, mode="ref")
                 torch.cuda.synchronize()
                 assert torch.equal(got, again)
-                assert rel(got, want) < tol, (KH, grp, T, causal, window)
+                assert rel(got, want) < tol, (KH, grp, Tq, Tk, causal, window)
+    # rows past every key of their window: 0 across 128-row q tiles
+    q, k, v = (torch.randn((1, T, 4, hd), generator=g,
+                           device="cuda").to(dtype) for T in (600, 200, 200))
+    out = ops.flash_attention(q, k[:, :, :2], v[:, :, :2], causal=True,
+                              window=32, mode="kernel")
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all() and out[:, 231:].eq(0).all()

@@ -1,14 +1,18 @@
 #!/usr/bin/env python3
-"""A/B of the bf16 flash-attention kernel's two versions on one CUDA card.
+"""A/B of the bf16 flash-attention kernel's two tensor-core designs on one
+CUDA card.
 
-The first version ran bf16 attention as fp32 FMAs on the CUDA cores; the
-second runs it on the tensor cores (``mma.sync``). Both live in
-``src/repro_torch/kernels/csrc/flash_attention.cu``, which routes bf16 at
-hd ≤ 128 to the second. This script builds a copy of that source whose
-bf16 calls all take the first version, loads both libraries, checks they
-agree, and times them in turns (first, second, second, first) with CUDA
-events at llama3.2-3b's layer shape (24 query / 8 KV heads, hd 128, bf16,
-causal), T ∈ {1024, 8192, 32768}.
+``csrc/flash_attention.cu`` routes bf16 at hd 64 and 128 to the ``wgmma`` +
+TMA kernel (``flash_wgmma.cuh``). This script builds a copy of that source
+whose dispatch sends those head dims to the ``mma.sync`` kernel that came
+before it (``launch_mma``, kept for hd 16 and 32), loads both libraries,
+asserts that they agree (1e-2 of the largest |o|, the sweep's bf16 gate:
+the two sum in other orders and round p at other running maxima), and
+times them in turns (mma.sync, wgmma, wgmma, mma.sync) with CUDA events at
+llama3.2-3b's layer shape (24 query / 8 KV heads, hd 128, bf16, causal),
+T ∈ {1024, 8192, 32768}, beside ``scaled_dot_product_attention`` on the
+same inputs (KV heads expanded outside the timed call; the port never
+calls it).
 
     python3 tools/flash_attention_ab.py        # needs a GPU and nvcc
 """
@@ -29,27 +33,28 @@ from repro_torch.kernels import _build, ops  # noqa: E402
 
 SHAPES = (1024, 8192, 32768)
 H, KH, HD = 24, 8, 128
+TOL = 1e-2
 
 
-def first_version(out: Path) -> ctypes.CDLL:
-    """The source with bf16 routed to the CUDA-core kernel, built and loaded."""
+def mma_version(out: Path) -> ctypes.CDLL:
+    """A copy of the source with bf16 at hd 64 and 128 routed to mma.sync,
+    built and loaded."""
     src = (_build.CSRC / "flash_attention.cu").read_text()
-    v1 = src.replace("  if (bf16) {   // the tensor cores",
-                     "  if (bf16 && hd < 0) {   // the tensor cores")
-    v1 = v1.replace(
-        "  return dispatch<float>(q, k, v, o, B, H, KH, Tq, Tk, hd, scale, causal, window, st);",
-        "  return bf16 ? dispatch<__nv_bfloat16>(q, k, v, o, B, H, KH, Tq, Tk, hd, scale,"
-        " causal, window, st)\n              : dispatch<float>(q, k, v, o, B, H, KH, Tq, Tk,"
-        " hd, scale, causal, window, st);")
-    if v1.count("hd < 0") != 1 or v1.count("return bf16 ?") != 1:
-        raise RuntimeError("flash_attention.cu's dispatch changed; update this script")
-    (out / "v1.cu").write_text(v1)
+    patched = src
+    for hd in (64, 128):
+        wgmma = f"case {hd}: return fa3::launch<{hd}>("
+        if src.count(wgmma) != 1:
+            raise RuntimeError("flash_attention.cu's dispatch changed; update "
+                               "this script")
+        patched = patched.replace(wgmma, f"case {hd}: return launch_mma<{hd}>(")
+    (out / "flash_mma.cu").write_text(patched)
+    lib_path = out / "libflash_mma.so"
     r = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
-                        "-o", str(out / "libv1.so"), str(out / "v1.cu")],
+                        "-o", str(lib_path), str(out / "flash_mma.cu")],
                        capture_output=True, text=True)
     if r.returncode:
         raise RuntimeError(f"nvcc failed:\n{r.stdout}\n{r.stderr}")
-    lib = ctypes.CDLL(str(out / "libv1.so"))
+    lib = ctypes.CDLL(str(lib_path))
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.flash_attention_launch.argtypes = [P, P, P, P, I, I, I, I, I, I, I, F, I, I, P]
     lib.flash_attention_launch.restype = I
@@ -79,34 +84,45 @@ def main() -> int:
     print(card)
     _build.build(("flash_attention",))
     with tempfile.TemporaryDirectory() as tmp:
-        lib = first_version(Path(tmp))
+        lib = mma_version(Path(tmp))
 
-        def v1(q, k, v):
+        def mma(q, k, v):
             o = torch.empty_like(q)
             err = lib.flash_attention_launch(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), 1, 1, H, KH,
                 q.shape[1], k.shape[1], HD, HD ** -0.5, 1, 0,
                 torch.cuda.current_stream().cuda_stream)
             if err:
-                raise RuntimeError(f"first version: CUDA error {err}")
+                raise RuntimeError(f"mma.sync version: CUDA error {err}")
             return o
 
         gen = torch.Generator(device="cuda").manual_seed(0)
         for T in SHAPES:
             q, k, v = (torch.randn((1, T, heads, HD), generator=gen, device="cuda")
                        .to(torch.bfloat16) for heads in (H, KH, KH))
+            qt = q.transpose(1, 2)
+            kt, vt = (t.repeat_interleave(H // KH, dim=2).transpose(1, 2) for t in (k, v))
 
-            def v2():
+            def wgmma():
                 return ops.flash_attention(q, k, v, causal=True, mode="kernel")
-            a, b = v1(q, k, v), v2()
+
+            def sdpa():
+                return torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True)
+            a, b = mma(q, k, v), wgmma()
             torch.cuda.synchronize()
             diff = float((a.float() - b.float()).abs().max() / b.float().abs().max())
+            if not diff < TOL:
+                raise AssertionError(f"T={T}: the two versions {diff:.3e} apart")
             iters = 3 if T > 8192 else 20
-            t = [time_ms(lambda: v1(q, k, v), iters), time_ms(v2, iters),
-                 time_ms(v2, iters), time_ms(lambda: v1(q, k, v), iters)]
-            print(f"T={T}: first version {t[0]:.3f}/{t[3]:.3f} ms, second "
-                  f"{t[1]:.3f}/{t[2]:.3f} ms; outputs {diff:.2e} apart (max-abs "
-                  "over max)", flush=True)
+            t = [time_ms(lambda: mma(q, k, v), iters), time_ms(wgmma, iters),
+                 time_ms(wgmma, iters), time_ms(lambda: mma(q, k, v), iters)]
+            lib_ms = time_ms(sdpa, iters)
+            tflop = 4 * HD * H * T * (T + 1) / 2 / 1e9
+            print(f"T={T}: mma.sync {t[0]:.3f}/{t[3]:.3f} ms, wgmma {t[1]:.3f}/"
+                  f"{t[2]:.3f} ms ({tflop / min(t[1], t[2]):.0f} TFLOP/s), SDPA "
+                  f"{lib_ms:.3f} ms; outputs {diff:.2e} apart (max-abs over max)",
+                  flush=True)
     print(card)
     return 0
 
