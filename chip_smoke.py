@@ -10,7 +10,9 @@ Phases, each printing its own lines:
    card over a shape sweep up to (2048, 200_000), fp32 and bf16 windows
    (serve kernels at k ∈ {1, 5, 8, 16}; the Cholesky at n ∈ {1, 15, 16,
    17, 64, 65, 100, 130, 256, 1024, 2048, 4096} on SPD W, its upper
-   triangle 0 and, by torch.profiler, one kernel launch a factorization);
+   triangle 0 and, by torch.profiler, one kernel launch a factorization;
+   the Gram's route — wgmma + TMA or the CUDA cores — per shape and
+   dtype, counted and held to ``gram.tensor_core_route``);
    a second call must be bit-identical;
 4. serving path, dense — ``SolveServer`` at the paper's Table-1 shape
    (n = 1024 samples, m = 100_000 parameters, λ₀ = 1e-3): 64 requests
@@ -21,13 +23,14 @@ Phases, each printing its own lines:
 6. Algorithm 1 — ``chol_solve_fused`` at the Table-1 shapes (256, 1024
    and 2048 samples × 100_000 parameters, λ = 1e-3), dense and (at 1024)
    blocked, with ``chol_solve(gram_fn=ops.gram)`` and ``ops.gram_blocks``,
-   each against ``chol_solve`` on the card with plain versions;
+   each against ``chol_solve`` on the card with plain versions; every
+   Gram on the wgmma route;
 7. NGD trainer — 5 steps of ``NaturalGradient`` with the fused solver on
    the MLP of ``examples/ngd_mlp_train.py --big`` (m = 296,448, n = 256),
    each step's kernels against their plain versions on its inputs, and
    its update held to the float64 step of its own S and g at the plain
    ``"chol"`` step's distance plus 1e-3 (the same step on the CPU is
-   printed beside it);
+   printed beside it); every Gram on the wgmma route;
 8. cholupdate checks — the rank-k rotation kernel against its plain
    version (the composed method) at n ∈ {16, 24, 64, 100, 1024, 2048},
    k ∈ {1, 3, 8, 16, 32}, update and downdate; repeats bit-identical,
@@ -64,11 +67,13 @@ Phases, each printing its own lines:
    (configs/shapes.py prefill_32k, batch 32 → 1): 28 launches, the
    profile showing the wgmma kernel; layer 0's attention at that shape
    against the plain version;
-15. profiles of one dense flush, one (1024, 100_000) solve, one NGD step,
-   one update+downdate slide, one LM serving round and the long prefill;
-   per-kernel launches, times, plain and library times, bounds (the
-   Cholesky also at n = 256 and 2048, flash attention at T = 1024 and
-   32,768).
+15. profiles of one dense flush, one (1024, 100_000) solve, one NGD step
+   (the solve's and the step's must show the wgmma Gram kernel and not
+   the CUDA-core one), one update+downdate slide, one LM serving round
+   and the long prefill; per-kernel launches, times, plain and library
+   times, bounds (the Gram's on the tensor cores' rate for fp32-accurate
+   products, its fp32-FMA bound printed beside; the Cholesky also at n =
+   256 and 2048, flash attention at T = 1024 and 32,768).
 
 Any failed check raises, so the script exits non-zero. The last line is
 ``{"ok": true, "device": {...}}``.
@@ -102,6 +107,8 @@ from repro_torch.core import (BlockedScores, chol_factorize,  # noqa: E402
 from repro_torch.curvature import (CurvatureCache,  # noqa: E402
                                    StreamingCurvature, StreamingGram)
 from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels.gram import ROUTES as GRAM_ROUTES  # noqa: E402
+from repro_torch.kernels.gram import tensor_core_route  # noqa: E402
 from repro_torch.kernels.ref import WGMMA_HEAD_DIMS  # noqa: E402
 from repro_torch.launch.train import make_prefill  # noqa: E402
 from repro_torch.launch.trainer import build_server  # noqa: E402
@@ -249,12 +256,12 @@ def device_line() -> str:
     return out.splitlines()[0]
 
 
-def peaks(name: str) -> tuple[float, float, float]:
-    """(bytes/s, fp32 FLOP/s, dense bf16 tensor FLOP/s) from NVIDIA's data
-    sheets: H100 SXM 3.35 TB/s, 67 and 989 TFLOP/s; the PCIe part
-    2.0 TB/s, 51 and 756 TFLOP/s."""
-    return (2.0e12, 51e12, 756e12) if "PCIe" in name \
-        else (3.35e12, 67e12, 989e12)
+def peaks(name: str) -> tuple[float, float, float, float]:
+    """(bytes/s, fp32 FLOP/s, dense TF32 and dense bf16 tensor FLOP/s) from
+    NVIDIA's data sheets: H100 SXM 3.35 TB/s, 67, 494.7 and 989 TFLOP/s;
+    the PCIe part 2.0 TB/s, 51, 378 and 756 TFLOP/s."""
+    return (2.0e12, 51e12, 378e12, 756e12) if "PCIe" in name \
+        else (3.35e12, 67e12, 494.7e12, 989e12)
 
 
 def build() -> None:
@@ -429,10 +436,10 @@ def main_path(trace, blocked: bool) -> dict:
             "summary": summary}
 
 
-def profile(label: str, fn, prepare=None) -> None:
+def profile(label: str, fn, prepare=None) -> dict:
     """Run ``fn`` twice (after ``prepare``, outside the window): a warm-up,
     then once under torch.profiler. Prints the wall time, the device-busy
-    share and the device time by kernel."""
+    share and the device time by kernel, and returns the latter."""
     act = [torch.profiler.ProfilerActivity.CPU,
            torch.profiler.ProfilerActivity.CUDA]
     for _ in range(2):
@@ -456,6 +463,30 @@ def profile(label: str, fn, prepare=None) -> None:
           f"({100 * total / wall:.1f} %)")
     for key, ms in sorted(busy.items(), key=lambda kv: -kv[1])[:14]:
         print(f"    {ms:8.3f} ms  {key[:90]}")
+    return busy
+
+
+def profile_gram_path(label: str, fn) -> dict:
+    """``profile`` of path A or B: where the profiler saw device kernels,
+    the Gram ran on the wgmma kernel, never on the CUDA-core one. A
+    capture that shows device kernels but no Gram kernel of either route
+    is taken again, up to three times: late in a full run the profiler once
+    kept only the last kernel of a solve (0.13 of 4.2 ms), while the same
+    solve profiled alone shows every kernel."""
+    for _ in range(3):
+        busy = profile(label, fn)
+        names = " ".join(busy)
+        if not busy or "gram_tc_kernel" in names \
+                or "gram_partial_kernel" in names:
+            break
+        print(f"  {label}: the profile shows no Gram kernel; taking it "
+              "again", flush=True)
+    if not busy:
+        return busy
+    if "gram_tc_kernel" not in names or "gram_partial_kernel" in names:
+        raise AssertionError(f"{label}: the Gram did not run on the wgmma "
+                             "kernel alone")
+    print(f"  {label}: the Gram on gram_tc_kernel only", flush=True)
     return busy
 
 
@@ -525,6 +556,37 @@ def check_case(label, fn, tol) -> tuple[float, float]:
     return err, float((got.double() - plain.double()).abs().max())
 
 
+def gram_route(S) -> str:
+    """The route ``tensor_core_route`` gives the Gram of window S."""
+    n, m = S.shape
+    tc = tensor_core_route(n, m, S.dtype,
+                           S.storage_offset() * S.element_size())
+    return "wgmma" if tc else "cuda_cores"
+
+
+def check_gram_routes(label, windows, calls: int = 2) -> str:
+    """The Gram's route counts since the last reset are those the rule
+    gives: ``calls`` kernel launches on each window of ``windows`` (gram
+    and gram_sv on S, gram_blocks on its two blocks). Returns the routes,
+    named."""
+    expect = dict.fromkeys(GRAM_ROUTES, 0)
+    for S in windows:
+        expect[gram_route(S)] += calls
+    if GRAM_ROUTES != expect:
+        raise AssertionError(f"{label}: Gram routes {GRAM_ROUTES}, the rule "
+                             f"gives {expect}")
+    kinds = [gram_route(S) for S in windows]
+    return f"S {kinds[0]}, blocks {'/'.join(kinds[2:])}"
+
+
+def require_tensor_core_gram(label: str, routes: dict) -> None:
+    """Paths A and B run every Gram on the wgmma kernel."""
+    if routes["wgmma"] == 0 or routes["cuda_cores"]:
+        raise AssertionError(f"{label}: Gram launches by route {routes}; "
+                             "the path must take the wgmma kernel only")
+    print(f"  {label}: Gram launches by route {routes}", flush=True)
+
+
 def spd(n, gen):
     A = torch.randn((n, n), generator=gen, device="cuda")
     return A @ A.T / n + torch.eye(n, device="cuda")
@@ -542,13 +604,15 @@ def algorithm1_checks() -> dict:
             w = torch.randn((n,), generator=gen, device="cuda")
             B = BlockedScores.from_dense(S, (m // 2, m - m // 2))
             worst = {}
+            ops.reset_launch_counts()
             for name, fn in algorithm1_cases(S, v, w, B).items():
                 err, abs_err = check_case(f"{name} {n}x{m} {dtype}", fn,
                                           PASS_TOL)
                 worst[name] = err
                 if (n, m, dtype) == (N, M, torch.float32):
                     main_err[name] = abs_err
-            print(f"  {n}x{m} {str(dtype)[6:]}: rel err "
+            routes = check_gram_routes(f"{n}x{m} {dtype}", [S, S, *B.blocks])
+            print(f"  {n}x{m} {str(dtype)[6:]}: Gram routes {routes}; rel err "
                   + " ".join(f"{k}={e:.2e}" for k, e in worst.items()),
                   flush=True)
     errs = []
@@ -667,6 +731,7 @@ def algorithm1_path() -> dict:
                 raise AssertionError(f"{kind} {n}x{m}: {err:.3e} from the "
                                      "plain chol_solve")
     torch.cuda.synchronize()
+    require_tensor_core_gram("Algorithm 1", GRAM_ROUTES)
     return ops.launch_counts()
 
 
@@ -771,6 +836,7 @@ def trainer_path() -> tuple[dict, tuple]:
           f"n = {MLP_N} samples, λ = {LAM0:g}", flush=True)
     ngd_step(opt, st, p, Xd, yd)                  # warm-up, not applied
     counts = dict.fromkeys(ops.launch_counts(), 0)
+    routes = dict.fromkeys(GRAM_ROUTES, 0)
     gpu_loss, cpu_loss = [float(mse(p, Xd, yd))], [float(mse(p, Xd, yd))]
     for k in range(NGD_STEPS):
         torch.cuda.synchronize()
@@ -781,6 +847,8 @@ def trainer_path() -> tuple[dict, tuple]:
         step_ms = (time.perf_counter() - t0) * 1e3
         for key, n_launch in ops.launch_counts().items():
             counts[key] += n_launch
+        for key, n_launch in GRAM_ROUTES.items():
+            routes[key] += n_launch
         u_g = flat(upd)
         if u_g.shape != (m,) or not torch.isfinite(u_g).all():
             raise AssertionError(f"step {k}: update not a finite ({m},)")
@@ -815,6 +883,7 @@ def trainer_path() -> tuple[dict, tuple]:
           + " ".join(f"{x:.4e}" for x in cpu_loss))
     if not gpu_loss[-1] < 1e-2 * gpu_loss[0]:
         raise AssertionError("the NGD steps did not reduce the loss")
+    require_tensor_core_gram("NGD trainer", routes)
     return counts, (opt, st, p, Xd, yd)
 
 
@@ -1480,35 +1549,38 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(name, n, m, k, es, bw, flops, window_flops) -> tuple[float, str]:
+def bound(name, n, m, k, es, bw, flops, gram_rate) -> tuple[float, str]:
     """Least time for the function: each input read once and each output
-    written once, against the operations at peak — fp32, or the window
-    dtype's tensor rate for the Gram's products of window rows (the Gram
-    counts the lower triangle, the Cholesky n³/3); the larger wins."""
+    written once, against the operations at peak — fp32, or for the Gram's
+    products of window rows ``gram_rate``: the rate of fp32-accurate
+    products on the tensor cores (3xTF32, a third of the dense TF32 peak,
+    for an fp32 window; the dense bf16 peak for a bf16 one). The Gram
+    counts the lower triangle (gram_sv's u at the fp32 rate), the
+    Cholesky n³/3; the larger wins."""
     f4 = 4
     win = n * m * es
     tri = n * (n + 1) * m                     # 2 flop × n(n+1)/2 × m
-    nbytes, nops, peak = {
-        "sv_cross": (win + m * k * f4 + n * k * f4, 2 * n * m * k, flops),
-        "serve_apply": (win + n * k * f4 + 2 * m * k * f4, 2 * n * m * k,
-                        flops),
-        "trisolve": (n * n * f4 + 2 * n * k * f4, 2 * n * n * k, flops),
+    nbytes, t_ops = {
+        "sv_cross": (win + m * k * f4 + n * k * f4, 2 * n * m * k / flops),
+        "serve_apply": (win + n * k * f4 + 2 * m * k * f4,
+                        2 * n * m * k / flops),
+        "trisolve": (n * n * f4 + 2 * n * k * f4, 2 * n * n * k / flops),
         "serve_solve": (win + n * n * f4 + 2 * m * k * f4,
-                        4 * n * m * k + 2 * n * n * k, flops),
+                        (4 * n * m * k + 2 * n * n * k) / flops),
         "fold_cols": (win + k * m * es + (n + k) * k * f4,
-                      2 * (n + k) * m * k, flops),
-        "gram": (win + n * n * f4, tri, window_flops),
-        "gram_acc": (win + 2 * n * n * f4, tri, window_flops),
-        "gram_sv": (win + m * es + n * n * f4 + n * f4, tri + 2 * n * m,
-                    window_flops),
-        "cholesky": (2 * n * n * f4, n ** 3 / 3, flops),
-        "ngd_apply": (win + n * f4 + m * es + m * f4, 2 * n * m, flops),
+                      2 * (n + k) * m * k / flops),
+        "gram": (win + n * n * f4, tri / gram_rate),
+        "gram_acc": (win + 2 * n * n * f4, tri / gram_rate),
+        "gram_sv": (win + m * es + n * n * f4 + n * f4,
+                    tri / gram_rate + 2 * n * m / flops),
+        "cholesky": (2 * n * n * f4, n ** 3 / 3 / flops),
+        "ngd_apply": (win + n * f4 + m * es + m * f4, 2 * n * m / flops),
         # the lower triangle read and written once, X read once; 6 flop a
         # rotation of a lower element, k rotations each
-        "cholupdate": (n * (n + 1) * f4 + n * k * f4, 3 * n * (n + 1) * k,
-                       flops),
+        "cholupdate": (n * (n + 1) * f4 + n * k * f4,
+                       3 * n * (n + 1) * k / flops),
     }[name]
-    t_b, t_o = nbytes / bw * 1e3, nops / peak * 1e3
+    t_b, t_o = nbytes / bw * 1e3, t_ops * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
@@ -1558,8 +1630,12 @@ def timings(dtype, k: int, bw: float, flops: float) -> dict:
 
 
 def algorithm1_timings(dtype, bw: float, flops: float,
-                       window_flops: float) -> dict:
-    """The Algorithm-1 kernels at (N, M), one right-hand side."""
+                       gram_rate: float) -> dict:
+    """The Algorithm-1 kernels at (N, M), one right-hand side. Row 3's
+    library call is one ``torch.mm(S, Sv.T)`` with Sv = [S; v] built
+    outside the timed region: W and u in one call, over the full square.
+    The Gram's bound on the fp32 FMA rate (the CUDA-core route's) is
+    printed beside the tensor-core bound."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
     S = (torch.randn((N, M), generator=gen, device="cuda") / M ** 0.5).to(dtype)
     v = torch.randn((M,), generator=gen, device="cuda")
@@ -1567,6 +1643,7 @@ def algorithm1_timings(dtype, bw: float, flops: float,
     W = spd(N, gen)
     acc = torch.zeros((N, N), device="cuda")   # gram_acc accumulates in place
     vs = v.to(dtype)
+    Sv = torch.cat([S, vs[None]])
     cases = {
         "gram": lambda mode: ops.gram(S, mode=mode),
         "gram_acc": lambda mode: ops.gram_acc(S, acc, mode=mode),
@@ -1579,14 +1656,20 @@ def algorithm1_timings(dtype, bw: float, flops: float,
         library = {
             "gram": lambda: torch.matmul(S, S.T),
             "gram_acc": lambda: torch.addmm(acc, S, S.T),
+            "gram_sv": lambda: torch.mm(S, Sv.T),
             "cholesky": lambda: torch.linalg.cholesky(W),
             "ngd_apply": lambda: torch.addmv(v, S.T, w, beta=1 / LAM0,
                                              alpha=-1 / LAM0),
         }
     es = S.element_size()
+    fma = {name: bound(name, N, M, 1, es, bw, flops, flops)[0]
+           for name in ("gram", "gram_acc", "gram_sv")}
+    print(f"  {str(dtype)[6:]} Gram bound on the fp32 FMA rate (the CUDA-core "
+          "route's): " + ", ".join(f"{k} {t:.4f} ms" for k, t in fma.items()),
+          flush=True)
     return time_cases(
         cases, library,
-        lambda name: bound(name, N, M, 1, es, bw, flops, window_flops),
+        lambda name: bound(name, N, M, 1, es, bw, flops, gram_rate),
         f"{str(dtype)[6:]}")
 
 
@@ -1662,9 +1745,10 @@ def main() -> int:
     card = device_line()
     print(card)
     name = torch.cuda.get_device_name(0)
-    bw, flops, bf16_flops = peaks(name)
+    bw, flops, tf32_flops, bf16_flops = peaks(name)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; bound peaks "
           f"{bw / 1e12:.2f} TB/s, {flops / 1e12:.0f} TFLOP/s fp32, "
+          f"{tf32_flops / 1e12:.1f} TFLOP/s TF32, "
           f"{bf16_flops / 1e12:.0f} TFLOP/s bf16")
 
     phase("build")
@@ -1737,10 +1821,11 @@ def main() -> int:
     profile_flush(trace)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
     S, v = solve_inputs(N, M, gen)
-    profile(f"one chol_solve_fused at {N}x{M}",
-            lambda: ops.chol_solve_fused(S, v, LAM0))
+    profile_gram_path(f"one chol_solve_fused at {N}x{M}",
+                      lambda: ops.chol_solve_fused(S, v, LAM0))
     opt, st, p, Xd, yd = step_inputs
-    profile(f"one NGD step (n = {MLP_N})", lambda: ngd_step(opt, st, p, Xd, yd))
+    profile_gram_path(f"one NGD step (n = {MLP_N})",
+                      lambda: ngd_step(opt, st, p, Xd, yd))
     fac = chol_factorize(S, LAM0)
     X_new, X_old = slide(S, 0, gen)
     profile(f"one update + downdate slide at {N}x{M}, k = {SLIDE_K}",
@@ -1750,7 +1835,7 @@ def main() -> int:
     phase(f"kernel times at {N}x{M}")
     t32 = timings(torch.float32, PER_MB, bw, flops)
     timings(torch.bfloat16, PER_MB, bw, flops)
-    t32.update(algorithm1_timings(torch.float32, bw, flops, flops))
+    t32.update(algorithm1_timings(torch.float32, bw, flops, tf32_flops / 3))
     algorithm1_timings(torch.bfloat16, bw, flops, bf16_flops)
     phase("Cholesky times (path A's n)")
     cholesky_timings(bw, flops)

@@ -8,6 +8,8 @@ them raises ``NotImplementedError`` naming the slice that ports it.
 """
 import importlib
 
+from repro_torch.roadmap import queue
+
 __all__ = ["ARCHS", "LATER", "get_config", "get_smoke", "list_archs"]
 
 ARCHS = {
@@ -36,7 +38,7 @@ def _module(name: str):
     if name in LATER:
         raise NotImplementedError(
             f"{name} needs {LATER[name]}, which a later slice of the model "
-            "zoo ports (ROADMAP A4)")
+            f"zoo ports ({queue('models')})")
     return importlib.import_module(ARCHS[name])
 
 

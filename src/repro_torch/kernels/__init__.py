@@ -8,11 +8,14 @@ CPU tensors → plain version) and ``_build.py`` compiles the sources with
 
 Algorithm 1 (the trainer path, ``ops.chol_solve_fused``):
 
-* ``gram``        — W = S·Sᵀ, split-m lower tiles (``gram_pallas``).
+* ``gram``        — W = S·Sᵀ, split-m lower tiles (``gram_pallas``):
+  ``wgmma`` + TMA (3xTF32 for fp32, bf16 as stored) where
+  ``gram.tensor_core_route`` holds, else fp32 FMAs on the CUDA cores.
 * ``gram_acc``    — W ← W + S·Sᵀ in place (``gram_acc_pallas``).
 * ``gram_sv``     — (S·Sᵀ, S·v) in one pass (``gram_sv_pallas``).
 * ``cholesky``    — panel Cholesky, any n (``cholesky_pallas``).
-* ``ngd_apply``   — x = (v − Sᵀw)/λ (``ngd_apply_pallas``).
+* ``ngd_apply``   — x = (v − Sᵀw)/λ, one right-hand side
+  (``ngd_apply_pallas``).
 
 The maintained factor (``CholFactorization.update``/``downdate``):
 

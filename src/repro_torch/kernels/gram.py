@@ -5,6 +5,11 @@ and ``repro/kernels/gram_sv.py`` (``gram_sv_pallas``); the kernels are in
 ``csrc/gram.cu``: a split-m pass over the lower (128, 128) tiles of
 W = S·Sᵀ, then a fixed-order sum of the partials that mirrors W, seeds it
 from W_in (``gram_acc``) and sums u = S·v (``gram_sv``).
+
+The pass has two routes, chosen by ``tensor_core_route`` from the shape,
+the dtype and the view's offset alone: ``wgmma`` fed by TMA (3xTF32 for an
+fp32 window, one bf16 pass for a bf16 one) where TMA can read the window,
+else fp32 FMAs on the CUDA cores. ``ROUTES`` counts the launches of each.
 """
 from __future__ import annotations
 
@@ -16,29 +21,55 @@ from repro_torch.kernels import _build
 from repro_torch.kernels._build import I, P
 from repro_torch.kernels.serve_solve import check_window
 
-__all__ = ["LAUNCHES", "gram_acc_cuda", "gram_cuda", "gram_split",
-           "gram_sv_cuda"]
+__all__ = ["LAUNCHES", "ROUTES", "box_columns", "gram_acc_cuda", "gram_cuda",
+           "gram_split", "gram_sv_cuda", "tensor_core_route"]
 
 LAUNCHES = {"gram": 0, "gram_acc": 0, "gram_sv": 0}
+# launches of the three wrappers by route: "wgmma" (tensor cores, TMA) or
+# "cuda_cores" (fp32 FMAs)
+ROUTES = {"wgmma": 0, "cuda_cores": 0}
 
-# Mirrors kT / kK in csrc/gram.cu. The split of m aims at a fixed number of
-# blocks (8 per SM of an H100), independent of the card, so the reduction
-# order — and the result bits — depend on the shape only. The scratch is
-# about _TARGET_BLOCKS × 64 KB (≈ 70 MB) whatever the shape.
+# Mirrors kT / kK and tc::Cfg<T>::kCols in csrc/gram.cu. The split of m aims
+# at a fixed number of blocks (8 per SM of an H100), independent of the card,
+# so the reduction order — and the result bits — depend on the shape only.
+# The scratch is about _TARGET_BLOCKS × 64 KB (≈ 70 MB) whatever the shape.
 _TILE = 128
-_DEPTH = 16
+_DEPTH = 16                     # CUDA-core route: columns a stage
+_BOX_BYTES = 128                # tensor-core route: a TMA box is 128 bytes wide
 _TARGET_BLOCKS = 1056
 
-_SIGNATURES = {"gram_launch": [P, I, P, P, P, P, P, P, I, I, I, I, I, P]}
+_SIGNATURES = {"gram_launch": [P, I, P, P, P, P, P, P, I, I, I, I, I, I, P]}
 
 
-def gram_split(n: int, m: int) -> tuple[int, int, int]:
+def box_columns(dtype: torch.dtype) -> int:
+    """Columns of m in one TMA box of the tensor-core route: 32 fp32, 64
+    bf16."""
+    return _BOX_BYTES // torch.empty((), dtype=dtype).element_size()
+
+
+def tensor_core_route(n: int, m: int, dtype: torch.dtype,
+                      byte_offset: int = 0) -> bool:
+    """Whether the Gram of an (n, m) row-major window of ``dtype`` whose
+    data starts ``byte_offset`` bytes into its storage takes the ``wgmma``
+    + TMA kernel: fp32 or bf16, and TMA's 16-byte alignment of the row
+    stride (m·itemsize) and of the base (the storage itself is allocated
+    aligned). A pure rule on the shape, the dtype and the offset — the
+    same answer for a tensor on any device."""
+    if dtype not in (torch.float32, torch.bfloat16) or n < 1 or m < 1:
+        return False
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    return (m * itemsize) % 16 == 0 and byte_offset % 16 == 0
+
+
+def gram_split(n: int, m: int, depth: int = _DEPTH) -> tuple[int, int, int]:
     """(tiles, P, chunk): the lower tiles of W and the split of m into P
-    chunks of ``chunk`` columns (a multiple of the kernel's stage depth)."""
+    chunks of ``chunk`` columns, a multiple of ``depth`` — the CUDA-core
+    route's stage (16, the default) or the tensor-core route's box
+    (``box_columns``), so that no box reads into the next chunk."""
     t = -(-n // _TILE)
     tiles = t * (t + 1) // 2
-    P_ = max(1, min(-(-_TARGET_BLOCKS // tiles), -(-m // _DEPTH)))
-    chunk = -(-(-(-m // P_)) // _DEPTH) * _DEPTH
+    P_ = max(1, min(-(-_TARGET_BLOCKS // tiles), -(-m // depth)))
+    chunk = -(-(-(-m // P_)) // depth) * depth
     return tiles, -(-m // chunk), chunk
 
 
@@ -46,7 +77,10 @@ def _launch(S: torch.Tensor, v: Optional[torch.Tensor],
             W_in: Optional[torch.Tensor], W: torch.Tensor,
             u: Optional[torch.Tensor]) -> None:
     n, m = S.shape
-    tiles, Pn, chunk = gram_split(n, m)
+    tc = tensor_core_route(n, m, S.dtype,
+                           S.storage_offset() * S.element_size())
+    depth = box_columns(S.dtype) if tc else _DEPTH
+    tiles, Pn, chunk = gram_split(n, m, depth)
     part = torch.empty((Pn, tiles, _TILE, _TILE), dtype=torch.float32,
                        device=S.device)
     part_u = None if v is None else torch.empty(
@@ -58,7 +92,9 @@ def _launch(S: torch.Tensor, v: Optional[torch.Tensor],
     _build.call(_build.library("gram", _SIGNATURES), "gram_launch", S.device,
                 S.data_ptr(), int(S.dtype == torch.bfloat16), ptr(v),
                 ptr(W_in), W.data_ptr(), ptr(u), part.data_ptr(),
-                ptr(part_u), n, m, tiles, Pn, chunk, _build.stream_of(S))
+                ptr(part_u), n, m, tiles, Pn, chunk, int(tc),
+                _build.stream_of(S))
+    ROUTES["wgmma" if tc else "cuda_cores"] += 1
 
 
 def gram_cuda(S: torch.Tensor) -> torch.Tensor:
@@ -93,6 +129,8 @@ def gram_sv_cuda(S: torch.Tensor, v: torch.Tensor,
     if v.device != S.device:
         raise ValueError(f"v is on {v.device}, the kernel runs on {S.device}")
     v = v.reshape(m).to(S.dtype).contiguous()
+    if v.data_ptr() % 16:           # the kernels read v 16 bytes at a time
+        v = v.clone()
     W_in = W
     if W is None:
         W = torch.empty((n, n), dtype=torch.float32, device=S.device)

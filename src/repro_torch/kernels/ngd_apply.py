@@ -1,8 +1,9 @@
 """CUDA launch wrapper: the NGD apply pass x = (v − Sᵀw)/λ.
 
 Replaces ``repro/kernels/ngd_apply.py`` (``ngd_apply_pallas``); the kernel
-is the apply pass of ``csrc/apply.cuh`` at one right-hand side, with v in
-fp32 or bf16 (widened on load) — ``csrc/ngd_apply.cu``.
+(``csrc/ngd_apply.cu``) is the one-right-hand-side apply pass: 16-byte
+streaming loads of the window, its rows split over the warps of a block
+and summed in a fixed order, v in fp32 or bf16 (widened on load).
 """
 from __future__ import annotations
 

@@ -100,7 +100,9 @@ def launch_counts() -> dict:
 
 
 def reset_launch_counts() -> None:
-    for counts in _COUNTERS:
+    """Zero every wrapper's launch count and the Gram's counts by route
+    (``gram.ROUTES``)."""
+    for counts in _COUNTERS + (_gram.ROUTES,):
         for name in counts:
             counts[name] = 0
 

@@ -14,8 +14,9 @@ from repro_torch.core.operator import acc_dtype
 from repro_torch.core.solvers import cholesky
 from repro_torch.curvature.update import chol_downdate, chol_update
 
-__all__ = ["gram_ref", "gram_sv_ref", "ngd_apply_ref", "cholesky_ref",
-           "cholupdate_ref", "chol_solve_ref", "sv_cross_ref",
+__all__ = ["gram_ref", "gram_sv_ref", "gram_tf32_ref", "tf32_split",
+           "ngd_apply_ref", "cholesky_ref", "cholupdate_ref",
+           "chol_solve_ref", "sv_cross_ref",
            "serve_apply_ref", "serve_solve_ref", "trisolve_ref",
            "fold_cols_ref", "flash_attention_ref"]
 
@@ -37,6 +38,32 @@ def gram_sv_ref(S: torch.Tensor, v: torch.Tensor):
     kernel, like the TPU one, rounds it to S's dtype first)."""
     S32 = _f32(S)
     return S32 @ S32.T, S32 @ _f32(v)
+
+
+def tf32_split(S: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(big, small) of an fp32 window as the tensor cores read them in the
+    Gram's 3xTF32 route: big is S rounded to the nearest TF32 value, ties
+    away from zero (``cvt.rna.tf32.f32``); small = S − big (exact in fp32,
+    either sign) as TF32 reads it, its low 13 mantissa bits dropped."""
+    S32 = _f32(S).contiguous()
+    bits = S32.view(torch.int32)
+    big = ((bits + 0x1000) & -8192).view(torch.float32)
+    small = (S32 - big).view(torch.int32) & -8192
+    return big, small.view(torch.float32)
+
+
+def gram_tf32_ref(S: torch.Tensor, passes: int = 3) -> torch.Tensor:
+    """The arithmetic of the Gram's tensor-core route on an fp32 window, for
+    the tests: big·bigᵀ + big·smallᵀ + small·bigᵀ (``passes=3``), exact
+    products summed in fp32. ``passes=1`` is one TF32 pass over the window
+    as it lies, each word's low 13 mantissa bits ignored, which the route
+    never takes: ≈ 7e-4 off, where the three passes are ≈ 3e-7."""
+    if passes == 1:
+        bits = _f32(S).contiguous().view(torch.int32)
+        t = (bits & -8192).view(torch.float32)
+        return t @ t.T
+    big, small = tf32_split(S)
+    return big @ big.T + (big @ small.T + small @ big.T)
 
 
 def ngd_apply_ref(S: torch.Tensor, w: torch.Tensor, v: torch.Tensor,

@@ -10,7 +10,7 @@ PyTorch runs eagerly on the parameters' device, with no sharding.
 * ``make_serve_step`` — one greedy decode token.
 
 The train steps (``make_train_step``, ``make_ngd_train_step``) come with
-the trainer (ROADMAP A4).
+the trainer (``repro_torch.roadmap``).
 """
 from __future__ import annotations
 

@@ -4,10 +4,10 @@
 
 ``build_server`` is the eager replicated server of the reference. Its
 other flavours raise ``NotImplementedError`` naming the queue that ports
-them: ``layout``/``async_`` (the sharded tier, ROADMAP A8), the tenant
-options (A5) and the observability hooks and audit (A6). The trainer
+them (``repro_torch.roadmap``): ``layout``/``async_`` (the sharded tier),
+the tenant options and the observability hooks and audit. The trainer
 (``build_trainer``, ``train_main``) and ``build_fleet`` come with later
-slices (A4, A9).
+slices too.
 """
 from __future__ import annotations
 
@@ -20,6 +20,7 @@ from repro_torch.data import SyntheticLM
 from repro_torch.launch import train as T
 from repro_torch.models.api import get_api
 from repro_torch.optim.scores import flatten_like
+from repro_torch.roadmap import queue
 
 __all__ = ["ServeHandles", "build_server"]
 
@@ -103,19 +104,19 @@ def _build_serve_front(cfg, *, window: int, seq: int, score_chunk=None,
     return handles, S0
 
 
-# option → the queue of ROADMAP A that ports it
+# option → the key of the roadmap queue that ports it
 _LATER = {
-    "layout": "A8 (the sharded tier)",
-    "async_": "A8 (the sharded tier)",
-    "tenant_rank": "A5 (tenants)",
-    "tenant_budget_mb": "A5 (tenants)",
-    "audit_every": "A6 (observability)",
-    "registry": "A6 (observability)",
-    "tracer": "A6 (observability)",
-    "profile": "A6 (observability)",
-    "health": "A6 (observability)",
-    "recorder": "A6 (observability)",
-    "record_dir": "A6 (observability)",
+    "layout": "sharded",
+    "async_": "sharded",
+    "tenant_rank": "tenants",
+    "tenant_budget_mb": "tenants",
+    "audit_every": "observability",
+    "registry": "observability",
+    "tracer": "observability",
+    "profile": "observability",
+    "health": "observability",
+    "recorder": "observability",
+    "record_dir": "observability",
 }
 
 
@@ -152,7 +153,7 @@ def build_server(cfg, *, window: int, seq: int, damping: float = 1e-3,
     for name, value in given.items():
         if value not in (None, False, 0):
             raise NotImplementedError(
-                f"build_server({name}=...) comes with ROADMAP {_LATER[name]}")
+                f"build_server({name}=...) comes with {queue(_LATER[name])}")
     handles, S0 = _build_serve_front(cfg, window=window, seq=seq,
                                      score_chunk=score_chunk, seed=seed,
                                      params=params, device=device)

@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
+from repro_torch.roadmap import queue
 
 __all__ = ["ModelAPI", "get_api"]
 
@@ -36,13 +37,13 @@ def get_api(cfg: ModelConfig) -> ModelAPI:
     if cfg.family in ("encdec", "audio"):
         raise NotImplementedError(
             f"{cfg.name}: the encoder-decoder trunk (models/encdec.py) comes "
-            "with a later slice of the model zoo (ROADMAP A4)")
+            f"with a later slice of the model zoo ({queue('models')})")
     later = [s for s in cfg.slots if s.kind == "mamba" or s.moe
              or s.cross_attn]
     if later:
         raise NotImplementedError(
             f"{cfg.name}: {later[0]} needs a block a later slice of the "
-            "model zoo ports (ROADMAP A4)")
+            f"model zoo ports ({queue('models')})")
 
     def init_params(gen: torch.Generator):
         return lm.init_params(gen, cfg)

@@ -40,6 +40,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import supported as flash_supported
 from repro_torch.models import layers as L
 from repro_torch.models.config import BlockSlot, ModelConfig
+from repro_torch.roadmap import queue
 
 __all__ = ["block_apply", "chunked_ce", "decode_step", "embed_tokens",
            "forward", "init_blocks", "init_cache", "init_params", "init_slot",
@@ -51,7 +52,8 @@ F32 = torch.float32
 
 def _later(what: str):
     return NotImplementedError(
-        f"{what} comes with a later slice of the model zoo (ROADMAP A4)")
+        f"{what} comes with a later slice of the model zoo "
+        f"({queue('models')})")
 
 
 # ---------------------------------------------------------------------------

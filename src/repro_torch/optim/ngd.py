@@ -19,7 +19,7 @@ kernels on CUDA tensors.
 ``curvature=`` takes ``None`` or ``"exact"`` (solve from scratch every
 step, the paper's method). The streaming policies themselves are ported
 (``repro_torch.curvature``); taking one here waits on the NGD trainer
-slice (ROADMAP A1) and raises ``NotImplementedError`` until then.
+slice (``repro_torch.roadmap``) and raises ``NotImplementedError`` until then.
 """
 from __future__ import annotations
 
@@ -32,6 +32,7 @@ from repro_torch.core.damping import ConstantDamping, DampingState
 from repro_torch.core.pytree import leaves, tree_map, unflatten_like
 from repro_torch.optim.schedules import constant
 from repro_torch.optim.scores import flatten_like
+from repro_torch.roadmap import queue
 
 __all__ = ["NGDState", "NaturalGradient", "global_norm"]
 
@@ -85,8 +86,8 @@ class NaturalGradient:
             raise NotImplementedError(
                 "curvature= takes None or 'exact' in the torch port; the "
                 "streaming policies of the curvature slice "
-                "(repro_torch.curvature) reach the optimizer with the NGD "
-                "trainer slice (ROADMAP A1); got " + repr(curvature))
+                "(repro_torch.curvature) reach the optimizer with "
+                f"{queue('trainer')}; got {curvature!r}")
 
     def init(self, params) -> NGDState:
         return NGDState(

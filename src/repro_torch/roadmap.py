@@ -1,0 +1,24 @@
+"""Where the parts of the reference that the port has not reached yet are
+queued: ``ROADMAP.md``, queue A. Every refusal message of the port names
+its queue through this one table, so a renumbering of the roadmap changes
+one place."""
+from __future__ import annotations
+
+__all__ = ["QUEUES", "queue"]
+
+QUEUES = {
+    "trainer": ("A1", "the NGD trainer on the LM"),
+    "checkpoints": ("A3", "checkpoints"),
+    "observability": ("A4", "observability"),
+    "tenants": ("A5", "tenants"),
+    "models": ("A6", "the other model families"),
+    "sharded": ("A7", "the sharded tier"),
+    "fleet": ("A8", "the fleet"),
+    "launch": ("A9", "launch tooling"),
+}
+
+
+def queue(key: str) -> str:
+    """'ROADMAP A6 (the other model families)' for ``key`` = 'models'."""
+    label, what = QUEUES[key]
+    return f"ROADMAP {label} ({what})"

@@ -141,6 +141,15 @@ class OnlineAdaptation:
         # next maybe_refresh; bounded so it cannot grow without limit
         self._pending_aux: list = []
 
+    @classmethod
+    def from_policy(cls, policy, *, jitter: Optional[float] = None
+                    ) -> "OnlineAdaptation":
+        """Adopt a ``StreamingCurvature`` policy's thresholds."""
+        return cls(refresh_every=policy.refresh_every,
+                   drift_tol=policy.drift_tol,
+                   drift_frac=getattr(policy, "drift_frac", None),
+                   jitter=policy.jitter if jitter is None else jitter)
+
     def effective_drift_tol(self, damping_state=None) -> Optional[float]:
         if self.drift_tol is not None:
             return self.drift_tol

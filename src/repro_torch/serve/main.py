@@ -25,7 +25,7 @@ It prints p50/p99 solve latency, requests/sec and the window counters at
 exit. ``--smoke`` (the default) serves the architecture's reduced config;
 ``--full`` its published widths, ``--n-layers`` cuts the depth. The
 fleet, the async and sharded servers, tenants, observability, the audit
-and checkpoints come with later slices (ROADMAP A5–A9) and raise
+and checkpoints come with later slices (``repro_torch.roadmap``) and raise
 ``NotImplementedError`` when asked for.
 """
 from __future__ import annotations
@@ -40,6 +40,7 @@ import torch
 from repro_torch import configs
 from repro_torch.core.damping import LevenbergMarquardtDamping
 from repro_torch.launch.trainer import build_server
+from repro_torch.roadmap import queue
 
 __all__ = ["serve_main", "serve_trace"]
 
@@ -186,47 +187,46 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--tenants", type=int, default=0, metavar="N")
     ap.add_argument("--ckpt-every", type=int, default=0,
                     help="checkpoint cadence in flush rounds (0: off; "
-                         "checkpoints come with ROADMAP A7)")
+                         f"checkpoints come with {queue('checkpoints')})")
     ap.add_argument("--metrics-port", type=int, default=None)
     ap.add_argument("--metrics-snapshot", default=None)
     ap.add_argument("--trace-out", default=None)
     ap.add_argument("--profile-dir", default=None)
     ap.add_argument("--audit-every", type=int, default=0, metavar="K",
-                    help="0: off (the audit hook comes with ROADMAP A6)")
+                    help="0: off (the audit hook comes with "
+                         f"{queue('observability')})")
     ap.add_argument("--health-port", type=int, default=None)
     ap.add_argument("--record-dir", default=None)
     return ap
 
 
-# flag → (is it asked for, the queue of ROADMAP A that ports it)
+# flag → (is it asked for, the key of the roadmap queue that ports it)
 def _later_flags(args) -> dict:
     return {
-        "--fleet": (args.fleet > 0, "A9 (the fleet)"),
-        "--no-reconcile": (args.no_reconcile, "A9 (the fleet)"),
-        "--route": (args.route != "round_robin", "A9 (the fleet)"),
-        "--async": (args.async_, "A8 (the sharded tier)"),
-        "--mesh": (args.mesh != "replicated", "A8 (the sharded tier)"),
-        "--mesh-shape": (args.mesh_shape.replace(" ", "") != "1,1",
-                         "A10 (launch tooling)"),
-        "--tenants": (args.tenants > 0, "A5 (tenants)"),
-        "--ckpt-every": (args.ckpt_every > 0, "A7 (checkpoints)"),
-        "--metrics-port": (args.metrics_port is not None,
-                           "A6 (observability)"),
+        "--fleet": (args.fleet > 0, "fleet"),
+        "--no-reconcile": (args.no_reconcile, "fleet"),
+        "--route": (args.route != "round_robin", "fleet"),
+        "--async": (args.async_, "sharded"),
+        "--mesh": (args.mesh != "replicated", "sharded"),
+        "--mesh-shape": (args.mesh_shape.replace(" ", "") != "1,1", "launch"),
+        "--tenants": (args.tenants > 0, "tenants"),
+        "--ckpt-every": (args.ckpt_every > 0, "checkpoints"),
+        "--metrics-port": (args.metrics_port is not None, "observability"),
         "--metrics-snapshot": (args.metrics_snapshot is not None,
-                               "A6 (observability)"),
-        "--trace-out": (args.trace_out is not None, "A6 (observability)"),
-        "--profile-dir": (args.profile_dir is not None, "A6 (observability)"),
-        "--audit-every": (args.audit_every > 0, "A6 (observability)"),
-        "--health-port": (args.health_port is not None, "A6 (observability)"),
-        "--record-dir": (args.record_dir is not None, "A6 (observability)"),
+                               "observability"),
+        "--trace-out": (args.trace_out is not None, "observability"),
+        "--profile-dir": (args.profile_dir is not None, "observability"),
+        "--audit-every": (args.audit_every > 0, "observability"),
+        "--health-port": (args.health_port is not None, "observability"),
+        "--record-dir": (args.record_dir is not None, "observability"),
     }
 
 
 def serve_main(argv=None):
     args = _parser().parse_args(argv)
-    for flag, (asked, queue) in _later_flags(args).items():
+    for flag, (asked, key) in _later_flags(args).items():
         if asked:
-            raise NotImplementedError(f"{flag} comes with ROADMAP {queue}")
+            raise NotImplementedError(f"{flag} comes with {queue(key)}")
     cfg = configs.get_smoke(args.arch) if args.smoke \
         else configs.get_config(args.arch)
     if args.n_layers is not None:

@@ -4,7 +4,8 @@ the JAX Pallas kernels in interpret mode and its ``ref`` oracles),
 ``chol_solve_fused`` dense and blocked, every solver of ``SOLVERS`` plus
 ``minsr_solve``, ``gram_chunked``, ``center_scores`` and
 ``LazyBlockedScores``; and — on a machine with CUDA — each hand-written
-kernel against its plain version.
+kernel against its plain version (the Gram on both of its routes, the
+apply kernel at ragged and misaligned windows).
 
 Tolerances are those of ``tests/test_kernels.py`` and
 ``tests/test_solvers.py``: 5e-6 relative for the Gram and apply passes,
@@ -22,7 +23,8 @@ from repro_torch.core import (SOLVERS, BlockedScores, LazyBlockedScores,
                               gram_chunked, minsr_solve)
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.cholesky import cholesky_cuda
-from repro_torch.kernels.gram import gram_cuda, gram_split
+from repro_torch.kernels.gram import (ROUTES, gram_cuda, gram_split,
+                                      tensor_core_route)
 from repro_torch.kernels.ngd_apply import ngd_apply_cuda
 
 try:
@@ -433,3 +435,54 @@ def test_cuda_cholesky_matches_plain_beyond_reference_cap(n):
     assert ops.launch_counts()["cholesky"] == 2
     assert torch.equal(got, again)
     assert rel(got, ops.cholesky(W, mode="ref")) < CHOL_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype", [
+    ((256, 4096), torch.float32), ((256, 4096), torch.bfloat16),
+    ((130, 515), torch.float32), ((32, 300), torch.bfloat16)],
+    ids=["wgmma-f32", "wgmma-bf16", "cuda_cores-f32", "cuda_cores-bf16"])
+def test_cuda_gram_routes_match_plain(shape, dtype):
+    """Both routes of the Gram (``tensor_core_route``: wgmma + TMA where the
+    window's row stride is 16-byte aligned, else the CUDA cores) against
+    the plain version, counted by route, repeats bit-identical."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (runs on the H100 via chip_smoke "
+                    "and `pytest -m cuda`)")
+    g = torch.Generator(device="cuda").manual_seed(2)
+    n, m = shape
+    S = (torch.randn(shape, generator=g, device="cuda") / m ** 0.5).to(dtype)
+    v = torch.randn((m,), generator=g, device="cuda").to(dtype)
+    route = "wgmma" if tensor_core_route(n, m, dtype) else "cuda_cores"
+    assert route == ("wgmma" if m == 4096 else "cuda_cores")
+    ops.reset_launch_counts()
+    W, again = ops.gram(S), ops.gram(S)
+    Wsv, u = ops.gram_sv(S, v)
+    torch.cuda.synchronize()
+    assert ROUTES[route] == 3 and sum(ROUTES.values()) == 3
+    assert torch.equal(W, again) and torch.equal(W, Wsv)
+    assert rel(W, ops.gram(S, mode="ref")) < PASS_TOL
+    assert rel(u, ops.gram_sv(S, v, mode="ref")[1]) < PASS_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(100, 1001), (64, 4098), (3000, 5000)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cuda_ngd_apply_edges_match_plain(shape, dtype):
+    """The k = 1 apply kernel at a ragged m, rows that are not 16-byte
+    aligned (a view one element in) and n past its staged w tile (2048)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (runs on the H100 via chip_smoke "
+                    "and `pytest -m cuda`)")
+    g = torch.Generator(device="cuda").manual_seed(3)
+    n, m = shape
+    flat = torch.randn((n * m + 1,), generator=g, device="cuda").to(dtype)
+    w = torch.randn((n,), generator=g, device="cuda")
+    v = torch.randn((m,), generator=g, device="cuda").to(dtype)
+    for off in (0, 1):
+        S = flat[off:off + n * m].view(n, m)
+        got, again = ops.ngd_apply(S, w, v, 0.37), ops.ngd_apply(S, w, v, 0.37)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        assert rel(got, ops.ngd_apply(S, w, v, 0.37, mode="ref")) < PASS_TOL

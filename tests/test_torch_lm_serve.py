@@ -129,7 +129,7 @@ def test_later_server_options_raise(option):
 
 
 def test_not_ported_arch_raises_in_the_cli():
-    with pytest.raises(NotImplementedError, match="A4"):
+    with pytest.raises(NotImplementedError, match="A6"):
         serve_main(["--arch", "mamba2-1.3b", "--device", "cpu"])
 
 

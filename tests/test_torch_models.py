@@ -280,7 +280,7 @@ def test_synthetic_batches_bit_for_bit(arch):
 
 def test_families_not_ported_raise():
     for arch in tconfigs.LATER:
-        with pytest.raises(NotImplementedError, match="A4"):
+        with pytest.raises(NotImplementedError, match="A6"):
             tconfigs.get_config(arch)
         with pytest.raises(NotImplementedError):
             tconfigs.get_smoke(arch)

@@ -2,19 +2,24 @@
 request trace (fused uniform-λ microbatches, one mixed-λ microbatch,
 folds that wrap the FIFO, an age-triggered refresh) through both
 packages' ``SolveServer`` on the CPU, plus bf16 windows, the state array
-round trip in both directions, and the CUDA-by-default device rule."""
+round trip in both directions, the CUDA-by-default device rule and
+``OnlineAdaptation.from_policy``."""
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.core.operator import BlockedScores as JBlocked
+from repro.curvature import StreamingCurvature as JPolicy
 from repro.serve import (OnlineAdaptation as JAdapt, SolveServer as JServer,
                          TokenBudgetBatcher as JBatcher,
                          init_serve_state as j_init)
 from repro.serve.state import (serve_state_arrays as j_arrays,
                                serve_state_from_arrays as j_from_arrays)
 from repro_torch.core import BlockedScores
+from repro_torch.curvature import StreamingCurvature
 from repro_torch.serve import (OnlineAdaptation, SolveServer,
                                TokenBudgetBatcher, init_serve_state,
                                serve_state_arrays, serve_state_from_arrays)
@@ -244,3 +249,33 @@ def test_downdate_margin_tracking_matches_jax():
     assert tad.downdate_clamped == \
         reg.counter("curvature.downdate_clamped").value == 0
     assert not tad._pending_aux
+
+
+@pytest.mark.parametrize("policy", [
+    {"refresh_every": 7, "drift_tol": 1e-3, "drift_frac": None},
+    {"refresh_every": 3, "drift_tol": None, "drift_frac": 0.4,
+     "jitter": 2e-5},
+    {"refresh_every": 5, "drift_tol": None, "drift_frac": None},
+    {"refresh_every": 4, "drift_tol": None, "jitter": 1e-6, "bare": True},
+], ids=["static_tol", "frac", "no_drift", "no_drift_frac_attr"])
+def test_adaptation_from_policy_matches_jax(policy):
+    """``OnlineAdaptation.from_policy`` adopts a ``StreamingCurvature``
+    policy's thresholds as the reference's does (``repro/serve/adapt.py``);
+    a policy object without ``drift_frac`` gives none, and ``jitter=``
+    overrides the policy's."""
+    policy = dict(policy)
+    if policy.pop("bare", False):
+        jp = tp = types.SimpleNamespace(**policy)
+    else:
+        jp, tp = JPolicy(8, **policy), StreamingCurvature(8, **policy)
+    for jitter in (None, 3e-4):
+        ja = JAdapt.from_policy(jp, jitter=jitter)
+        ta = OnlineAdaptation.from_policy(tp, jitter=jitter)
+        assert (ta.refresh_every, ta.drift_tol, ta.drift_frac, ta.jitter) \
+            == (ja.refresh_every, ja.drift_tol, ja.drift_frac, ja.jitter)
+        assert ta.jitter == (policy.get("jitter", 0.0) if jitter is None
+                             else jitter)
+        jt, tt = ja.effective_drift_tol(), ta.effective_drift_tol()
+        assert (jt is None) == (tt is None)
+        if tt is not None:
+            assert abs(float(jt) - tt) <= 1e-7 * abs(tt)
