@@ -12,7 +12,8 @@ Phases, each printing its own lines:
    17, 64, 65, 100, 130, 256, 1024, 2048, 4096} on SPD W, its upper
    triangle 0 and, by torch.profiler, one kernel launch a factorization;
    the Gram's route — wgmma + TMA or the CUDA cores — per shape and
-   dtype, counted and held to ``gram.tensor_core_route``);
+   dtype, counted and held to ``gram.tensor_core_route``; the
+   substitution also at n ∈ {31, 32, 33, 64, 65, 4096});
    a second call must be bit-identical;
 4. serving path, dense — ``SolveServer`` at the paper's Table-1 shape
    (n = 1024 samples, m = 100_000 parameters, λ₀ = 1e-3): 64 requests
@@ -32,7 +33,7 @@ Phases, each printing its own lines:
    ``"chol"`` step's distance plus 1e-3 (the same step on the CPU is
    printed beside it); every Gram on the wgmma route;
 8. cholupdate checks — the rank-k rotation kernel against its plain
-   version (the composed method) at n ∈ {16, 24, 64, 100, 1024, 2048},
+   version (the composed method) at n ∈ {16, 24, 64, 100, 1024, 2048, 4096},
    k ∈ {1, 3, 8, 16, 32}, update and downdate; repeats bit-identical,
    zero and −0.0 columns exact no-ops, the upper triangle exactly 0;
 9. maintained factorization — 8 slides of 16 columns of a 1024 × 100_000
@@ -69,7 +70,9 @@ Phases, each printing its own lines:
    against the plain version;
 15. profiles of one dense flush, one (1024, 100_000) solve, one NGD step
    (the solve's and the step's must show the wgmma Gram kernel and not
-   the CUDA-core one), one update+downdate slide, one LM serving round
+   the CUDA-core one; the solve's the cluster substitution kernel), one
+   update+downdate slide (two cholupdate_kernel launches, no transpose),
+   one LM serving round
    and the long prefill; per-kernel launches, times, plain and library
    times, bounds (the Gram's on the tensor cores' rate for fp32-accurate
    products, its fp32-FMA bound printed beside; the Cholesky also at n =
@@ -110,6 +113,7 @@ from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels.gram import ROUTES as GRAM_ROUTES  # noqa: E402
 from repro_torch.kernels.gram import tensor_core_route  # noqa: E402
 from repro_torch.kernels.ref import WGMMA_HEAD_DIMS  # noqa: E402
+from repro_torch.kernels.serve_solve import trisolve_columns  # noqa: E402
 from repro_torch.launch.train import make_prefill  # noqa: E402
 from repro_torch.launch.trainer import build_server  # noqa: E402
 from repro_torch.models import get_api  # noqa: E402
@@ -152,7 +156,11 @@ SOLVE_GATE = 1e-3       # tests/test_kernels.py:103-108 (rtol of the fused solve
 # distance plus 1e-3; the CPU step is printed beside it.
 STEP_GATE = 1e-3
 # the rank-k update: the sweep of tests/test_kernels.py:52-64 and beyond
-CHOLUP_N = (16, 24, 64, 100, 1024, 2048)
+CHOLUP_N = (16, 24, 64, 100, 1024, 2048, 4096)
+# the substitution beside SWEEP_SHAPES: a panel of 64 rows and its edges
+# (31, 32, 33, 64, 65: one block of the cluster, a ragged panel, two
+# panels) and 4096 (eight panels a block of the cluster)
+TRISOLVE_N = (31, 32, 33, 64, 65, 4096)
 CHOLUP_K = (1, 3, 8, 16, 32)
 CHOLUP_TOL = 1e-5                       # tests/test_kernels.py:64
 SLIDES, SLIDE_K = 8, 16                 # benchmarks/amortized.py's slides
@@ -208,7 +216,7 @@ KERNELS = {
                  "src/repro/kernels/serve_solve.py:153"),
     "serve_apply": ("src/repro_torch/kernels/csrc/serve_solve.cu",
                     "src/repro/kernels/serve_solve.py:187"),
-    "trisolve": ("src/repro_torch/kernels/csrc/serve_solve.cu",
+    "trisolve": ("src/repro_torch/kernels/csrc/trisolve.cuh",
                  "src/repro/kernels/serve_solve.py:46"),
     "fold_cols": ("src/repro_torch/kernels/csrc/fold.cu",
                   "src/repro/kernels/fold.py:54"),
@@ -337,6 +345,34 @@ def kernel_checks() -> dict:
     return main_err
 
 
+def trisolve_checks() -> None:
+    """The substitution alone at TRISOLVE_N × SWEEP_K, against its plain
+    version (PASS_TOL, 10× beyond n = N, as in the sweep), repeats
+    bit-identical; the cluster's column tile printed with each n."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    for n in TRISOLVE_N:
+        _, L = window(n, 2 * n, torch.float32, gen)
+        tol = PASS_TOL if n <= N else 10 * PASS_TOL
+        worst = 0.0
+        for k in SWEEP_K:
+            U = torch.randn((n, k), generator=gen, device="cuda")
+            got, again = (ops.trisolve(L, U, mode="kernel") for _ in range(2))
+            plain = ops.trisolve(L, U, mode="ref")
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError(f"trisolve n={n} k={k}: repeat call not "
+                                     "bit-identical")
+            err = rel(got, plain)
+            if not err < tol:
+                raise AssertionError(f"trisolve n={n} k={k}: rel err "
+                                     f"{err:.3e} >= {tol:g}")
+            worst = max(worst, err)
+        print(f"  trisolve n={n}: worst rel err {worst:.2e} over k = {SWEEP_K} "
+              f"(gate {tol:g}); column tiles "
+              + ", ".join(str(trisolve_columns(n, k)) for k in SWEEP_K),
+              flush=True)
+
+
 # ---------------------------------------------------------------------------
 # 4-5. the serving path
 # ---------------------------------------------------------------------------
@@ -436,10 +472,11 @@ def main_path(trace, blocked: bool) -> dict:
             "summary": summary}
 
 
-def profile(label: str, fn, prepare=None) -> dict:
+def profile(label: str, fn, prepare=None, calls=None) -> dict:
     """Run ``fn`` twice (after ``prepare``, outside the window): a warm-up,
     then once under torch.profiler. Prints the wall time, the device-busy
-    share and the device time by kernel, and returns the latter."""
+    share and the device time by kernel, and returns the latter; ``calls``,
+    a dict, receives the launches by kernel name."""
     act = [torch.profiler.ProfilerActivity.CPU,
            torch.profiler.ProfilerActivity.CUDA]
     for _ in range(2):
@@ -454,6 +491,8 @@ def profile(label: str, fn, prepare=None) -> dict:
     events = [e for e in prof.key_averages()
               if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
     busy = {e.key: e.self_device_time_total / 1e3 for e in events}
+    if calls is not None:
+        calls.update({e.key: e.count for e in events})
     if not busy:
         print(f"  {label}: {wall:.3f} ms wall; device time not measured "
               "(the profiler returned no device events)")
@@ -500,6 +539,31 @@ def require_wgmma_attention(label: str, busy: dict) -> None:
         raise AssertionError(f"{label}: attention did not run on the wgmma "
                              "kernel alone")
     print(f"  {label}: attention on flash_wgmma_kernel only", flush=True)
+
+
+def require_cluster_trisolve(label: str, busy: dict) -> None:
+    """Where the profiler saw device kernels: the substitution ran on the
+    cluster kernel (trisolve.cuh), not the previous one-block kernel."""
+    if not busy:
+        return
+    if not any("tri::trisolve_kernel" in key for key in busy):
+        raise AssertionError(f"{label}: no cluster substitution kernel in "
+                             "the profile")
+    print(f"  {label}: the substitution on tri::trisolve_kernel", flush=True)
+
+
+def require_one_launch_a_sweep(label: str, busy: dict, calls: dict,
+                               sweeps: int) -> None:
+    """Where the profiler saw device kernels: one cholupdate_kernel launch
+    a sweep (its scratch is one memset), and no transpose around it."""
+    if not busy:
+        return
+    kernels = sum(n for key, n in calls.items() if "cholupdate_kernel" in key)
+    if kernels != sweeps or any("transpose" in key for key in calls):
+        raise AssertionError(f"{label}: {kernels} cholupdate_kernel launches "
+                             f"for {sweeps} sweeps, or a transpose: {calls}")
+    print(f"  {label}: {kernels} cholupdate_kernel launches for {sweeps} "
+          "sweeps, no transpose", flush=True)
 
 
 def profile_flush(trace) -> None:
@@ -1756,6 +1820,7 @@ def main() -> int:
 
     phase("kernel checks (kernel vs plain on the card, repeat bit-identical)")
     main_err = kernel_checks()
+    trisolve_checks()
     main_err.update(algorithm1_checks())
 
     trace = make_trace()
@@ -1821,15 +1886,19 @@ def main() -> int:
     profile_flush(trace)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
     S, v = solve_inputs(N, M, gen)
-    profile_gram_path(f"one chol_solve_fused at {N}x{M}",
-                      lambda: ops.chol_solve_fused(S, v, LAM0))
+    busy = profile_gram_path(f"one chol_solve_fused at {N}x{M}",
+                             lambda: ops.chol_solve_fused(S, v, LAM0))
+    require_cluster_trisolve(f"one chol_solve_fused at {N}x{M}", busy)
     opt, st, p, Xd, yd = step_inputs
     profile_gram_path(f"one NGD step (n = {MLP_N})",
                       lambda: ngd_step(opt, st, p, Xd, yd))
     fac = chol_factorize(S, LAM0)
     X_new, X_old = slide(S, 0, gen)
-    profile(f"one update + downdate slide at {N}x{M}, k = {SLIDE_K}",
-            lambda: fac.update(X_new, S_new=S).downdate(X_old, S_new=S))
+    calls = {}
+    busy = profile(f"one update + downdate slide at {N}x{M}, k = {SLIDE_K}",
+                   lambda: fac.update(X_new, S_new=S).downdate(X_old, S_new=S),
+                   calls=calls)
+    require_one_launch_a_sweep("the slide", busy, calls, sweeps=2)
     del S, v, fac
 
     phase(f"kernel times at {N}x{M}")

@@ -16,8 +16,9 @@ from repro_torch.curvature.update import chol_downdate, chol_update
 
 __all__ = ["gram_ref", "gram_sv_ref", "gram_tf32_ref", "tf32_split",
            "ngd_apply_ref", "cholesky_ref", "cholupdate_ref",
-           "chol_solve_ref", "sv_cross_ref",
+           "cholupdate_rotations_ref", "chol_solve_ref", "sv_cross_ref",
            "serve_apply_ref", "serve_solve_ref", "trisolve_ref",
+           "trisolve_panels_ref",
            "fold_cols_ref", "flash_attention_ref"]
 
 
@@ -91,6 +92,65 @@ def cholupdate_ref(L: torch.Tensor, X: torch.Tensor,
     return fn(L.to(tgt), X.to(tgt))
 
 
+def _warp_scan(sq: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sums along the last axis (≤ 32 wide) in the order
+    of a warp's shuffle scan: offsets 1, 2, 4, ... added in turn."""
+    off = 1
+    while off < sq.shape[-1]:
+        sq = torch.cat([sq[..., :off], sq[..., off:] + sq[..., :-off]], -1)
+        off <<= 1
+    return sq
+
+
+def cholupdate_rotations_ref(L: torch.Tensor, X: torch.Tensor,
+                             sign: int = 1, eps: float = 1e-30
+                             ) -> torch.Tensor:
+    """The rank-k rotation kernel's arithmetic (``csrc/cholupdate.cu``),
+    emulated in fp32 for the tests, as ``tf32_split`` emulates the Gram's:
+    columns of X in chunks of 32; per factor column j, with a = L[j, j] and
+    b the chunk's entries of row j of X after columns < j,
+
+        r_t² = max(a² ± Σ_{s≤t} b_s², eps)   (the warp scan's order)
+        c_t = r_prev / r_t,  s_t = b_t / r_t   (1/r_t: rsqrt + one Newton
+                                               step; r_prev the r of the last
+                                               live rotation before t, or a)
+
+    a b of ±0 skipped; rows below apply the pairs in t order, l ← c·l ± s·x,
+    x ← c·x − s·l; the new diagonal is the last live r. The strict upper
+    triangle comes back 0. No fused multiply-add here, so the result is
+    within a few ulps of the kernel's, not bit for bit."""
+    f32 = torch.float32
+    sgn = 1.0 if sign > 0 else -1.0
+    Lw = torch.tril(_f32(L)).clone()
+    n = Lw.shape[0]
+    Xf = _f32(X).reshape(n, -1)
+    for c0 in range(0, Xf.shape[1], 32):
+        x = Xf[:, c0:c0 + 32].clone()
+        for j in range(n):
+            a = Lw[j, j].clone()
+            b = x[j].clone()
+            p = a * a + _warp_scan(sgn * b * b)
+            p = torch.where(torch.isnan(p), p,
+                            torch.clamp_min(p, torch.tensor(eps, dtype=f32)))
+            y = torch.rsqrt(p)
+            y = y * ((-0.5 * p * y) * y + 1.5)
+            r = p * y
+            live = b != 0
+            col = Lw[j + 1:, j]
+            xs = x[j + 1:]
+            r_prev = a
+            for t in torch.nonzero(live).flatten().tolist():
+                c_t, s_t = r_prev * y[t], b[t] * y[t]
+                xt = xs[:, t].clone()
+                xs[:, t] = c_t * xt - s_t * col
+                col = c_t * col + sgn * s_t * xt
+                r_prev = r[t]
+            Lw[j + 1:, j] = col
+            x[j + 1:] = xs
+            Lw[j, j] = r_prev
+    return Lw
+
+
 def chol_solve_ref(S: torch.Tensor, v: torch.Tensor, lam) -> torch.Tensor:
     """Full Algorithm 1 in fp32 — the oracle of the kernel-composed
     solver."""
@@ -129,6 +189,35 @@ def trisolve_ref(L: torch.Tensor, U: torch.Tensor) -> torch.Tensor:
     """w = L⁻† L⁻¹ U against a lower-triangular L."""
     w = torch.linalg.solve_triangular(L, U, upper=False)
     return torch.linalg.solve_triangular(_ct(L), w, upper=True)
+
+
+def trisolve_panels_ref(L: torch.Tensor, U: torch.Tensor,
+                        panel: int = 64) -> torch.Tensor:
+    """w = L⁻ᵀ L⁻¹ U in the substitution kernel's order
+    (``csrc/trisolve.cuh``), emulated in fp32 for the tests: panels of
+    ``panel`` rows; in a diagonal block, row t is scaled by its reciprocal
+    pivot once final and taken off the rows after it; each solved panel is
+    then taken from the rows still to go as one tile product (forward
+    L[rows, panel]·y, backward L[panel, rows]ᵀ·w), panels top to bottom,
+    then bottom to top. L (n, n) lower, U (n, k)."""
+    Lf = _f32(L)
+    r = _f32(U).reshape(L.shape[0], -1).clone()
+    n = Lf.shape[0]
+    starts = list(range(0, n, panel))
+    dinv = 1.0 / torch.diagonal(Lf)
+    for p0 in starts:                       # forward, L y = u
+        p1 = min(p0 + panel, n)
+        for t in range(p0, p1):
+            r[t] = r[t] * dinv[t]
+            r[t + 1:p1] -= Lf[t + 1:p1, t:t + 1] * r[t]
+        r[p1:] -= Lf[p1:, p0:p1] @ r[p0:p1]
+    for p0 in reversed(starts):             # backward, Lᵀ w = y
+        p1 = min(p0 + panel, n)
+        for t in range(p1 - 1, p0 - 1, -1):
+            r[t] = r[t] * dinv[t]
+            r[p0:t] -= Lf[t, p0:t, None] * r[t]
+        r[:p0] -= Lf[p0:p1, :p0].T @ r[p0:p1]
+    return r
 
 
 def serve_solve_ref(S: torch.Tensor, L: torch.Tensor, V: torch.Tensor,

@@ -6,7 +6,9 @@ Replaces ``repro/kernels/serve_solve.py`` (``serve_solve_pallas``,
 cross pass in ``csrc/cross.cuh``. Each wrapper checks its operands,
 allocates outputs and scratch with ``torch.empty``, launches on the
 current stream, raises on a CUDA error, and counts its launches in
-``LAUNCHES``.
+``LAUNCHES``. The substitution (``csrc/trisolve.cuh``) is one launch of
+clusters of 8 blocks, each cluster taking ``trisolve_columns(n, k)``
+columns of the right-hand side at once.
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels._build import F, I, P
 
 __all__ = ["LAUNCHES", "MAX_TRISOLVE_N", "WINDOW_DTYPES", "check_window",
-           "cross_split",
+           "cross_split", "trisolve_columns",
            "serve_apply_cuda", "serve_solve_cuda", "sv_cross_cuda",
            "trisolve_cuda"]
 
@@ -25,9 +27,13 @@ LAUNCHES = {"serve_solve": 0, "sv_cross": 0, "serve_apply": 0, "trisolve": 0}
 WINDOW_DTYPES = (torch.float32, torch.bfloat16)
 _F32 = (torch.float32,)
 
-# The substitution keeps one RHS column (n floats) in shared memory; 128 KB
-# of the 227 KB a block may use caps n.
+# The substitution keeps the right-hand side in the shared memory of a
+# cluster of 8 blocks: n/8 rows of up to 16 columns a block (fewer columns
+# for the largest n). Mirrors tri::kCluster, tri::kB and tri::smem_floats in
+# csrc/trisolve.cuh.
 MAX_TRISOLVE_N = 32768
+_CLUSTER, _PANEL, _PITCH = 8, 64, 68
+_SMEM_BYTES = 232448 - 1024     # of the 227 KB a block may use on an H100
 
 # Mirrors kRowsPerBlock / kTileJ in csrc/cross.cuh. The split over m aims at
 # a fixed number of blocks (4 per SM of an H100), independent of the card,
@@ -39,8 +45,8 @@ _TARGET_BLOCKS = 528
 _SIGNATURES = {
     "sv_cross_launch": [P, I, P, P, P, I, I, I, I, I, P],
     "serve_apply_launch": [P, I, P, P, P, I, I, I, F, P],
-    "trisolve_launch": [P, P, I, I, I, P, P],
-    "serve_solve_launch": [P, I, P, P, P, P, P, I, I, I, I, I, F, P],
+    "trisolve_launch": [P, P, I, I, I, I, P, P],
+    "serve_solve_launch": [P, I, P, P, P, P, P, I, I, I, I, I, I, F, P],
 }
 
 
@@ -55,6 +61,20 @@ def cross_split(rows: int, m: int) -> tuple[int, int]:
     P_ = max(1, min(-(-_TARGET_BLOCKS // tiles), -(-m // _TILE_J)))
     chunk = -(-(-(-m // P_)) // _TILE_J) * _TILE_J
     return -(-m // chunk), chunk
+
+
+def trisolve_columns(n: int, k: int) -> int:
+    """Columns of the right-hand side one cluster of the substitution takes
+    (its KT): 1, 4, 8 or 16, the least that holds k, halved while a block's
+    shared memory cannot hold its rows of them. A pure rule on (n, k); the
+    launch takes ⌈k/KT⌉ clusters."""
+    panels = -(-n // _PANEL)
+    slots = -(-panels // _CLUSTER)
+    fixed = _PANEL * (_PANEL + 1) + _PANEL + 4 * _PANEL * _PITCH
+    kt = 1 if k <= 1 else 4 if k <= 4 else 8 if k <= 8 else 16
+    while kt > 1 and 4 * ((slots + 2) * _PANEL * kt + fixed) > _SMEM_BYTES:
+        kt = 4 if kt == 8 else kt // 2 if kt == 16 else 1
+    return kt
 
 
 def check_window(S: torch.Tensor, name: str = "S") -> tuple[int, int]:
@@ -113,7 +133,8 @@ def _check_factor(L: torch.Tensor, n: int, device: torch.device) -> None:
     _build.check("L", L, device=device, dtypes=_F32, shape=(n, n))
     if n > MAX_TRISOLVE_N:
         raise ValueError(f"n={n} exceeds the substitution kernel's limit "
-                         f"{MAX_TRISOLVE_N} (one RHS column in shared memory)")
+                         f"{MAX_TRISOLVE_N} (the right-hand side in a "
+                         f"cluster's shared memory)")
 
 
 def trisolve_cuda(L: torch.Tensor, U: torch.Tensor) -> torch.Tensor:
@@ -127,7 +148,8 @@ def trisolve_cuda(L: torch.Tensor, U: torch.Tensor) -> torch.Tensor:
     w = torch.empty((n, k), dtype=torch.float32, device=L.device)
     # U is passed as the single partial of the fixed-order reduction
     _build.call(_lib(), "trisolve_launch", L.device, L.data_ptr(),
-                U.data_ptr(), 1, n, k, w.data_ptr(), _build.stream_of(L))
+                U.data_ptr(), 1, n, k, trisolve_columns(n, k), w.data_ptr(),
+                _build.stream_of(L))
     LAUNCHES["trisolve"] += 1
     return w
 
@@ -148,6 +170,7 @@ def serve_solve_cuda(S: torch.Tensor, L: torch.Tensor, V: torch.Tensor,
     _build.call(_lib(), "serve_solve_launch", S.device, S.data_ptr(),
                 int(S.dtype == torch.bfloat16), L.data_ptr(),
                 V.data_ptr(), part.data_ptr(), w.data_ptr(), X.data_ptr(),
-                n, m, k, Pn, chunk, float(lam), _build.stream_of(S))
+                n, m, k, Pn, chunk, trisolve_columns(n, k), float(lam),
+                _build.stream_of(S))
     LAUNCHES["serve_solve"] += 1
     return X
