@@ -13,13 +13,18 @@ Phases, each printing its own lines:
    triangle 0 and, by torch.profiler, one kernel launch a factorization;
    the Gram's route — wgmma + TMA or the CUDA cores — per shape and
    dtype, counted and held to ``gram.tensor_core_route``; the
-   substitution also at n ∈ {31, 32, 33, 64, 65, 4096});
+   substitution also at n ∈ {31, 32, 33, 64, 65, 4096}; the streaming
+   passes also on unaligned windows — m ragged in both dtypes and a view
+   one element into its storage — the kernels each streaming call
+   launched, counted where each kernel is launched, held to
+   ``serve_solve.stream_route`` and ``cross_tensor_cores``, and the
+   tensor cores' cross pass to the float64 product within TC_TOL);
    a second call must be bit-identical;
 4. serving path, dense — ``SolveServer`` at the paper's Table-1 shape
    (n = 1024 samples, m = 100_000 parameters, λ₀ = 1e-3): 64 requests
    with fold rows, one mixed-λ microbatch, age refreshes; the same trace
    through the port on the CPU (plain versions throughout) is the
-   reference;
+   reference; every streaming pass on the 16-byte route;
 5. serving path, blocked — the same window in four blocks, same trace;
 6. Algorithm 1 — ``chol_solve_fused`` at the Table-1 shapes (256, 1024
    and 2048 samples × 100_000 parameters, λ = 1e-3), dense and (at 1024)
@@ -68,7 +73,8 @@ Phases, each printing its own lines:
    (configs/shapes.py prefill_32k, batch 32 → 1): 28 launches, the
    profile showing the wgmma kernel; layer 0's attention at that shape
    against the plain version;
-15. profiles of one dense flush, one (1024, 100_000) solve, one NGD step
+15. profiles of one dense flush (fp32 and bf16 window), one (1024,
+   100_000) solve, one NGD step
    (the solve's and the step's must show the wgmma Gram kernel and not
    the CUDA-core one; the solve's the cluster substitution kernel), one
    update+downdate slide (two cholupdate_kernel launches, no transpose),
@@ -88,6 +94,7 @@ from __future__ import annotations
 import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -113,7 +120,9 @@ from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels.gram import ROUTES as GRAM_ROUTES  # noqa: E402
 from repro_torch.kernels.gram import tensor_core_route  # noqa: E402
 from repro_torch.kernels.ref import WGMMA_HEAD_DIMS  # noqa: E402
-from repro_torch.kernels.serve_solve import trisolve_columns  # noqa: E402
+from repro_torch.kernels.serve_solve import ROUTES as STREAM_ROUTES  # noqa: E402
+from repro_torch.kernels.serve_solve import (  # noqa: E402
+    cross_tensor_cores, kernels_launched, stream_route_of, trisolve_columns)
 from repro_torch.launch.train import make_prefill  # noqa: E402
 from repro_torch.launch.trainer import build_server  # noqa: E402
 from repro_torch.models import get_api  # noqa: E402
@@ -132,6 +141,14 @@ N, M, LAM0 = 1024, 100_000, 1e-3          # configs/paper.py Table-1 row
 WIDTHS = (40_000, 30_000, 20_000, 10_000)
 SWEEP_SHAPES = [(8, 128), (32, 300), (100, 1000), (130, 515), (N, M),
                 (2048, 200_000)]
+# windows the streaming passes read by scalar loads, beside the ragged
+# sweep shapes (300: m % 8 ≠ 0; 515: m % 4 ≠ 0): (n, m, offset) with m
+# ragged in both dtypes, and a contiguous view one element into its
+# storage, so no row starts 16-byte aligned
+UNALIGNED = [(256, 20_001, 0), (128, 4096, 1)]
+# the kernels of the streaming passes, and the operands whose offsets the
+# route rule reads
+STREAMED = {"sv_cross": 1, "serve_apply": 1, "serve_solve": 1, "fold_cols": 2}
 SWEEP_K = (1, 5, 8, 16)
 REQUESTS, PER_MB, ROWS_PER_REQ, MIXED_MB = 64, 8, 2, 3
 SEED = 0
@@ -146,6 +163,11 @@ MLP_D_IN, MLP_WIDTH, MLP_N, NGD_STEPS = 64, 512, 256, 5
 # the one-reduction passes; the solve adds two triangular solves whose
 # error grows with n, so 1e-3 at n = 2048.
 PASS_TOL = 1e-4
+# A bf16 window's cross pass on the tensor cores (sv_cross, fold_cols at
+# 8 or 16 right-hand sides a block), held to the float64 product of its
+# operands: V split exactly into three bf16 terms lands ≈ 3e-7 of the
+# largest output away, a lossy two-term split ≈ 3e-6 (tools/stream_ab.py).
+TC_TOL = 1e-6
 SERVE_GATE = 5e-3                      # benchmarks/serve.py's bound
 SOLVE_GATE = 1e-3       # tests/test_kernels.py:103-108 (rtol of the fused solve)
 # An NGD update, tests/test_optim.py's 1e-3. At λ = 1e-3 every fp32 route
@@ -280,10 +302,32 @@ def build() -> None:
     for name in libs:
         log = (_build.build_dir() / f"lib{name}.log")
         if log.exists():
-            for line in log.read_text().splitlines():
-                if "registers" in line or ("spill" in line
-                                           and "0 bytes spill stores" not in line):
-                    print(f"  ptxas {name}: {line.strip()}")
+            for line in ptxas_summary(log.read_text()):
+                print(f"  ptxas {name}: {line}")
+
+
+def ptxas_summary(log: str) -> list:
+    """One line an entry of a ptxas report: its name (demangled where
+    c++filt is at hand), registers and bytes spilled."""
+    entries, name, spill = [], None, ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "spill stores" in line and name:
+            parts = line.split(",")
+            spill = f"{parts[1].split()[0]}/{parts[2].split()[0]} bytes spilled"
+        elif "Used" in line and "registers" in line and name:
+            regs = line.split("Used")[1].split(",")[0].strip()
+            entries.append((name, f"{regs}, {spill}"))
+            name, spill = None, ""
+    filt = shutil.which("c++filt")
+    names = [n for n, _ in entries]
+    if filt and names:
+        out = subprocess.run([filt], input="\n".join(names), capture_output=True,
+                             text=True, timeout=60).stdout.splitlines()
+        if len(out) == len(names):
+            names = out
+    return [f"{n.split('(')[0]}: {info}" for n, (_, info) in zip(names, entries)]
 
 
 # ---------------------------------------------------------------------------
@@ -301,21 +345,54 @@ def kernel_cases(S, L, V, w, rows, lam):
     }
 
 
-def window(n, m, dtype, gen):
-    S = (torch.randn((n, m), generator=gen, device="cuda") / m ** 0.5).to(dtype)
+def window(n, m, dtype, gen, offset: int = 0):
+    """(S, L): a window, as a view ``offset`` elements into its storage
+    where that is given, and the factor of its Gram + λ₀I."""
+    if offset:
+        flat = torch.randn((n * m + offset,), generator=gen, device="cuda")
+        S = (flat / m ** 0.5).to(dtype)[offset:].view(n, m)
+    else:
+        S = (torch.randn((n, m), generator=gen, device="cuda")
+             / m ** 0.5).to(dtype)
     S32 = S.float()
     L = torch.linalg.cholesky(S32 @ S32.T
                               + LAM0 * torch.eye(n, device="cuda"))
     return S, L.contiguous()
 
 
+def expected_stream_kernels(name: str, dtype, k: int, route: str) -> dict:
+    """{kernel of ``STREAM_KERNELS``: launches} of one call of ``name`` as
+    the rules (``stream_route``, ``cross_tensor_cores``) say it runs."""
+    vec = "vector" if route == "vector" else "scalar"
+    cross = {"cross_tensor_cores" if cross_tensor_cores(dtype, k, route)
+             else f"cross_{vec}": 1}
+    apply = {f"apply_{vec}": 1}
+    return {"sv_cross": cross, "fold_cols": cross, "serve_apply": apply,
+            "serve_solve": {**cross, **apply}}[name]
+
+
+def stream_kernels_of(fn):
+    """(the streaming kernels one call of ``fn`` launched, {kernel:
+    launches} as the libraries count them where each kernel is launched
+    (``kernels_launched``); its result)."""
+    before = kernels_launched()
+    out = fn()
+    after = kernels_launched()
+    return {key: after[key] - before[key] for key in after
+            if after[key] != before[key]}, out
+
+
 def kernel_checks() -> dict:
-    """Sweep; returns {kernel: abs error at the main shape, fp32, k=8}."""
+    """Sweep; returns {kernel: abs error at the main shape, fp32, k=8}.
+    The kernels every call of a streaming pass launched (counted where each
+    kernel is launched, ``kernels_launched``) are held to the rules
+    (``stream_route``, ``cross_tensor_cores``), and a cross pass on the
+    tensor cores to the float64 product (TC_TOL)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    main_err = {}
-    for n, m in SWEEP_SHAPES:
+    main_err, tc_far = {}, {}
+    for n, m, offset in [(n, m, 0) for n, m in SWEEP_SHAPES] + UNALIGNED:
         for dtype in (torch.float32, torch.bfloat16):
-            S, L = window(n, m, dtype, gen)
+            S, L = window(n, m, dtype, gen, offset)
             worst = {}
             for k in SWEEP_K:
                 V = torch.randn((m, k), generator=gen, device="cuda")
@@ -323,12 +400,38 @@ def kernel_checks() -> dict:
                 rows = (torch.randn((k, m), generator=gen, device="cuda")
                         / m ** 0.5).to(dtype)
                 for name, fn in kernel_cases(S, L, V, w, rows, LAM0).items():
-                    got, again = fn("kernel"), fn("kernel")
+                    if name in STREAMED:
+                        seen, got = stream_kernels_of(lambda: fn("kernel"))
+                    else:
+                        got = fn("kernel")
+                    again = fn("kernel")
                     plain = fn("ref")
                     torch.cuda.synchronize()
                     if not torch.equal(got, again):
                         raise AssertionError(f"{name} {n}x{m} {dtype} k={k}: "
                                              "repeat call not bit-identical")
+                    if name in STREAMED:
+                        route = stream_route_of(*(S, rows)[:STREAMED[name]])
+                        want = expected_stream_kernels(name, dtype, k, route)
+                        if seen != want:
+                            raise AssertionError(
+                                f"{name} {n}x{m}+{offset} {dtype} k={k}: "
+                                f"launched {seen}, the rules say {want}")
+                        if name in ("sv_cross", "fold_cols") and \
+                                cross_tensor_cores(dtype, k, route):
+                            Sd = S.double()
+                            exact = Sd @ V.double() if name == "sv_cross" \
+                                else torch.cat([Sd, rows.double()]) @ \
+                                rows.double().T
+                            del Sd
+                            far = rel(got, exact)
+                            tc_far[name] = max(tc_far.get(name, 0.0), far)
+                            if not far < TC_TOL:
+                                raise AssertionError(
+                                    f"{name} {n}x{m} {dtype} k={k}: the "
+                                    f"tensor cores' cross pass {far:.3e} "
+                                    f"from the float64 product, gate "
+                                    f"{TC_TOL:g}")
                     err = rel(got, plain)
                     tol = PASS_TOL if name not in ("serve_solve", "trisolve") \
                         or n <= N else 10 * PASS_TOL
@@ -339,9 +442,17 @@ def kernel_checks() -> dict:
                     if (n, m, dtype, k) == (N, M, torch.float32, 8):
                         main_err[name] = float((got.double() - plain.double())
                                                .abs().max())
-            print(f"  {n}x{m} {str(dtype)[6:]}: worst rel err "
+            route = stream_route_of(S)
+            tc = [k for k in SWEEP_K if cross_tensor_cores(dtype, k, route)]
+            print(f"  {n}x{m}{f' at +{offset}' if offset else ''} "
+                  f"{str(dtype)[6:]} ({route} loads; cross pass on the tensor "
+                  f"cores at k = {tc}): worst rel err "
                   + " ".join(f"{k}={v:.2e}" for k, v in worst.items()),
                   flush=True)
+    print("  every streaming call launched the kernels its rules name "
+          "(counted at the launch sites); the tensor cores' cross pass at most "
+          + ", ".join(f"{k} {v:.2e}" for k, v in tc_far.items())
+          + f" from the float64 product (gate {TC_TOL:g})", flush=True)
     return main_err
 
 
@@ -439,12 +550,15 @@ def drive(S, vs, rows, lams, device, blocked):
 def main_path(trace, blocked: bool) -> dict:
     kind = "blocked" if blocked else "dense"
     t0 = time.perf_counter()
-    gx, gstate, summary = drive(*trace, "cuda", blocked)
+    seen, (gx, gstate, summary) = stream_kernels_of(
+        lambda: drive(*trace, "cuda", blocked))
     counts = ops.launch_counts()
+    routes = dict(STREAM_ROUTES)
     t_gpu = time.perf_counter() - t0
     print(f"  {kind} GPU: p50 {summary['p50_ms']:.3f} ms  p99 "
           f"{summary['p99_ms']:.3f} ms  {summary['rps']:.1f} req/s  "
-          f"(phase {t_gpu:.1f} s)  launches {counts}", flush=True)
+          f"(phase {t_gpu:.1f} s)  launches {counts}; streaming passes by "
+          f"route {routes}", flush=True)
     t0 = time.perf_counter()
     cx, cstate, csummary = drive(*trace, "cpu", blocked)
     print(f"  {kind} CPU reference: p50 {csummary['p50_ms']:.1f} ms "
@@ -468,6 +582,12 @@ def main_path(trace, blocked: bool) -> dict:
     missing = [k for k in expect if counts[k] == 0]
     if missing:
         raise AssertionError(f"{kind}: kernels never launched: {missing}")
+    # the rule's choice for the serving window, and the kernels launched
+    if routes["scalar"] or not routes["vector"]:
+        raise AssertionError(f"{kind}: the rule did not send every streaming "
+                             f"pass of the aligned window to 16-byte loads: "
+                             f"{routes}")
+    require_vector_streaming(f"{kind} serving", seen)
     return {"counts": counts, "worst": worst, "W": w_err, "L": l_err,
             "summary": summary}
 
@@ -566,13 +686,25 @@ def require_one_launch_a_sweep(label: str, busy: dict, calls: dict,
           "sweeps, no transpose", flush=True)
 
 
-def profile_flush(trace) -> None:
-    """One dense microbatch (8 requests with fold rows)."""
+def require_vector_streaming(label: str, seen: dict) -> None:
+    """``seen`` ({kernel: launches}, ``stream_kernels_of``) holds a
+    streaming kernel, and only 16-byte-load ones (the window is
+    aligned)."""
+    if not seen or any(key.endswith("_scalar") for key in seen):
+        raise AssertionError(f"{label}: streaming kernels launched {seen}, "
+                             "not all on 16-byte loads")
+    print(f"  {label}: streaming kernels launched {seen}", flush=True)
+
+
+def profile_flush(trace, window_dtype=None) -> None:
+    """One dense microbatch (8 requests with fold rows); the window stored
+    in ``window_dtype`` where that is given. The flush must launch the
+    streaming passes on their 16-byte-load kernels only."""
     S, vs, rows, lams = trace
     Sd = S.cuda()
     vs = [v.cuda() for v in vs[:PER_MB]]
     rows = [r.cuda() for r in rows[:PER_MB]]
-    srv = SolveServer(init_serve_state(Sd, LAM0),
+    srv = SolveServer(init_serve_state(Sd, LAM0, window_dtype=window_dtype),
                       batcher=TokenBudgetBatcher(max_requests=PER_MB),
                       adaptation=OnlineAdaptation(refresh_every=10 ** 6),
                       monitor_drift=False)
@@ -581,7 +713,10 @@ def profile_flush(trace) -> None:
         for v, r in zip(vs, rows):
             srv.submit(v, rows=r)
 
-    profile(f"flush of {PER_MB} requests + {PER_MB} folds", srv.flush, submit)
+    kind = "" if window_dtype is None else f", {str(window_dtype)[6:]} window"
+    label = f"flush of {PER_MB} requests + {PER_MB} folds{kind}"
+    seen, _ = stream_kernels_of(lambda: profile(label, srv.flush, submit))
+    require_vector_streaming(label, seen)
 
 
 # ---------------------------------------------------------------------------
@@ -1620,7 +1755,10 @@ def bound(name, n, m, k, es, bw, flops, gram_rate) -> tuple[float, str]:
     products on the tensor cores (3xTF32, a third of the dense TF32 peak,
     for an fp32 window; the dense bf16 peak for a bf16 one). The Gram
     counts the lower triangle (gram_sv's u at the fp32 rate), the
-    Cholesky n³/3; the larger wins."""
+    Cholesky n³/3; the larger wins. ``serve_solve`` counts the window
+    twice: its apply pass needs all of w, so all of u = S·V, before its
+    first column, and a window beyond the 50 MB of L2 (410 MB at the main
+    shape) is read from device memory again."""
     f4 = 4
     win = n * m * es
     tri = n * (n + 1) * m                     # 2 flop × n(n+1)/2 × m
@@ -1629,7 +1767,8 @@ def bound(name, n, m, k, es, bw, flops, gram_rate) -> tuple[float, str]:
         "serve_apply": (win + n * k * f4 + 2 * m * k * f4,
                         2 * n * m * k / flops),
         "trisolve": (n * n * f4 + 2 * n * k * f4, 2 * n * n * k / flops),
-        "serve_solve": (win + n * n * f4 + 2 * m * k * f4,
+        # the window twice: the apply pass needs all of u = S·V first
+        "serve_solve": (2 * win + n * n * f4 + 2 * m * k * f4,
                         (4 * n * m * k + 2 * n * n * k) / flops),
         "fold_cols": (win + k * m * es + (n + k) * k * f4,
                       2 * (n + k) * m * k / flops),
@@ -1884,6 +2023,7 @@ def main() -> int:
 
     phase("profiles")
     profile_flush(trace)
+    profile_flush(trace, torch.bfloat16)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
     S, v = solve_inputs(N, M, gen)
     busy = profile_gram_path(f"one chol_solve_fused at {N}x{M}",

@@ -25,7 +25,9 @@ The maintained factor (``CholFactorization.update``/``downdate``):
 The serve path (``ops.serve_solve``, ``ops.fold_cols``):
 
 * ``sv_cross``    — U = S·V, split-m cross pass (``sv_cross_pallas``).
-* ``serve_apply`` — X = (V − Sᵀw)/λ (``serve_apply_pallas``).
+* ``serve_apply`` — X = (V − Sᵀw)/λ, a block's warps splitting the rows
+  (``serve_apply_pallas``). Both passes read the window 16 bytes a lane
+  where ``serve_solve.stream_route`` allows.
 * ``trisolve``    — w = L⁻ᵀL⁻¹U, the substitution (``_trisolve``); also
   the triangular solves of ``chol_solve_fused``.
 * ``serve_solve`` — cross → substitution → apply, three launches on one

@@ -10,7 +10,8 @@
 // comes out of the same launch and pass over `rows`. The m axis is split over
 // the SMs and the partials are summed in fixed order by a second launch.
 //
-// Bound: bytes (the window is read once; n*m elements at fp32 or bf16).
+// Bound: bytes (the window is read once; n*m elements at fp32 or bf16), read
+// 16 bytes a lane where the window and the rows are aligned (stream.cuh).
 // S and rows share the window storage dtype (the fold's single cast point
 // rounds rows to it); accumulation is fp32.
 #include "cross.cuh"
@@ -19,10 +20,10 @@ namespace {
 
 template <typename T>
 int fold_cols_impl(const void* S, const void* rows, void* part, void* out, int n, int m,
-                   int k, int P, int chunk, cudaStream_t st) {
+                   int k, int P, int chunk, int vec, cudaStream_t st) {
   cudaError_t err = repro::launch_cross<T, T, true>(
       static_cast<const T*>(S), n, static_cast<const T*>(rows), k,
-      static_cast<const T*>(rows), m, k, P, chunk, static_cast<float*>(part), st);
+      static_cast<const T*>(rows), m, k, P, chunk, vec, static_cast<float*>(part), st);
   if (err != cudaSuccess) return err;
   return repro::launch_reduce(static_cast<const float*>(part), P, (n + k) * k,
                               static_cast<float*>(out), st);
@@ -31,11 +32,12 @@ int fold_cols_impl(const void* S, const void* rows, void* part, void* out, int n
 }  // namespace
 
 // out: (n + k, k) fp32 — rows [0, n) are cols, rows [n, n + k) the corner.
-// part: (P, n + k, k) fp32 scratch.
+// part: (P, n + k, k) fp32 scratch; vec the load route (1: 16 bytes a lane,
+// S and rows both 16-byte aligned).
 extern "C" int fold_cols_launch(const void* S, const void* rows, int bf16, void* part,
-                                void* out, int n, int m, int k, int P, int chunk,
+                                void* out, int n, int m, int k, int P, int chunk, int vec,
                                 void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bf16 ? fold_cols_impl<__nv_bfloat16>(S, rows, part, out, n, m, k, P, chunk, st)
-              : fold_cols_impl<float>(S, rows, part, out, n, m, k, P, chunk, st);
+  return bf16 ? fold_cols_impl<__nv_bfloat16>(S, rows, part, out, n, m, k, P, chunk, vec, st)
+              : fold_cols_impl<float>(S, rows, part, out, n, m, k, P, chunk, vec, st);
 }

@@ -100,9 +100,10 @@ def launch_counts() -> dict:
 
 
 def reset_launch_counts() -> None:
-    """Zero every wrapper's launch count and the Gram's counts by route
-    (``gram.ROUTES``)."""
-    for counts in _COUNTERS + (_gram.ROUTES,):
+    """Zero every wrapper's launch count and the counts by route of the
+    Gram (``gram.ROUTES``) and of the streaming passes
+    (``serve_solve.ROUTES``)."""
+    for counts in _COUNTERS + (_gram.ROUTES, _serve.ROUTES):
         for name in counts:
             counts[name] = 0
 

@@ -18,8 +18,8 @@ __all__ = ["gram_ref", "gram_sv_ref", "gram_tf32_ref", "tf32_split",
            "ngd_apply_ref", "cholesky_ref", "cholupdate_ref",
            "cholupdate_rotations_ref", "chol_solve_ref", "sv_cross_ref",
            "serve_apply_ref", "serve_solve_ref", "trisolve_ref",
-           "trisolve_panels_ref",
-           "fold_cols_ref", "flash_attention_ref"]
+           "trisolve_panels_ref", "sv_cross_tiles_ref",
+           "serve_apply_warps_ref", "fold_cols_ref", "flash_attention_ref"]
 
 
 def _f32(t: torch.Tensor) -> torch.Tensor:
@@ -232,6 +232,78 @@ def fold_cols_ref(S: torch.Tensor, rows: torch.Tensor):
     tgt = _acc(S, rows)
     r = rows.to(tgt)
     return S.to(tgt) @ _ct(r), r @ _ct(r)
+
+
+def _fma(x: torch.Tensor, y: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:
+    """fmaf in fp32, emulated: the exact product and the sum in float64,
+    rounded once more to fp32 (a tie of the two roundings aside, fmaf's
+    bits)."""
+    return (x.double() * y.double() + acc.double()).float()
+
+
+def sv_cross_tiles_ref(S: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
+    """U = S·V in the cross pass's order (``csrc/cross.cuh``), emulated in
+    fp32 for the tests. m is split as the kernel splits it
+    (``serve_solve.cross_split`` at ``cross_tile``); in a chunk, lane l of
+    32 owns the runs of 16 bytes l, l + 32, … of S's row (4 fp32 or 8 bf16
+    columns each) and adds its columns in ascending order by fmaf into one
+    sum a (row, column of V); the lanes' sums are added by the butterfly
+    of offsets 16, 8, 4, 2, 1 (lane 0's result), and the chunks' partials
+    in ascending order from 0. S (rows, m) fp32|bf16 — the fold passes
+    [S; rows] — and V (m, k). This is the CUDA cores' order; a bf16 window
+    at 8 or 16 right-hand sides a block on the vector route takes the
+    tensor cores (``serve_solve.cross_tensor_cores``), whose sums within
+    a 16-column step no emulation here reproduces bit for bit."""
+    from repro_torch.kernels.serve_solve import cross_split, cross_tile
+    rows, m = S.shape
+    k = V.shape[1]
+    vec = 16 // S.element_size()
+    P, chunk = cross_split(rows, m, cross_tile(S.dtype, k))
+    pad = P * chunk - m
+    X = torch.nn.functional.pad(_f32(S), (0, pad))
+    Y = torch.nn.functional.pad(_f32(V).T, (0, pad))              # (k, m)
+    q = chunk // (32 * vec)
+    # (rows, P, lane, the lane's columns in ascending order)
+    X = X.reshape(rows, P, q, 32, vec).permute(0, 1, 3, 2, 4).reshape(
+        rows, P, 32, q * vec)
+    Y = Y.reshape(k, P, q, 32, vec).permute(1, 3, 2, 4, 0).reshape(
+        P, 32, q * vec, k)
+    acc = torch.zeros((rows, P, 32, k), dtype=torch.float32)
+    for t in range(q * vec):
+        acc = _fma(X[:, :, :, t, None], Y[None, :, :, t, :], acc)
+    lanes = torch.arange(32)
+    for off in (16, 8, 4, 2, 1):
+        acc = acc + acc[:, :, lanes ^ off]
+    U = torch.zeros((rows, k), dtype=torch.float32)
+    for p in range(P):
+        U = U + acc[:, p, 0]
+    return U
+
+
+def serve_apply_warps_ref(S: torch.Tensor, w: torch.Tensor, V: torch.Tensor,
+                          lam) -> torch.Tensor:
+    """X = (V − Sᵀw)/λ in the apply pass's order (``csrc/apply.cuh``),
+    emulated in fp32 for the tests: the rows come in groups of the rows one
+    16-byte load of a lane covers (1 fp32, 2 bf16); warp v of 8 takes the
+    groups v, v + 8, … and adds its rows in ascending order by fmaf into
+    one sum an output; the 8 warps' sums are added in warp order, then
+    x = (v − sum)/λ in fp32. S (n, m) fp32|bf16; w (n, k); V (m, k)."""
+    n, m = S.shape
+    group = 16 // S.element_size() // 4     # a load's columns / a lane's 4
+    X = _f32(S)
+    W_ = _f32(w)
+    warp = (torch.arange(n) // group) % 8
+    sums = []
+    for v in range(8):
+        acc = torch.zeros((m, W_.shape[1]), dtype=torch.float32)
+        for i in torch.nonzero(warp == v).flatten().tolist():
+            acc = _fma(X[i, :, None], W_[i][None, :], acc)
+        sums.append(acc)
+    total = sums[0]
+    for acc in sums[1:]:
+        total = total + acc
+    lam32 = torch.tensor(float(lam), dtype=torch.float32)
+    return (_f32(V) - total) / lam32
 
 
 NEG = -0.7 * float(torch.finfo(torch.float32).max)

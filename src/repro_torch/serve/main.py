@@ -185,6 +185,11 @@ def _parser() -> argparse.ArgumentParser:
                                         "by_adapter"], default="round_robin")
     ap.add_argument("--no-reconcile", action="store_true")
     ap.add_argument("--tenants", type=int, default=0, metavar="N")
+    ap.add_argument("--tenant-rank", type=int, default=4,
+                    help="per-tenant delta rank budget r (--tenants)")
+    ap.add_argument("--tenant-budget-mb", type=float, default=None,
+                    help="resident tenant byte budget in MiB (--tenants)")
+    ap.add_argument("--ckpt-dir", default="artifacts/serve_ckpt")
     ap.add_argument("--ckpt-every", type=int, default=0,
                     help="checkpoint cadence in flush rounds (0: off; "
                          f"checkpoints come with {queue('checkpoints')})")
@@ -210,7 +215,11 @@ def _later_flags(args) -> dict:
         "--mesh": (args.mesh != "replicated", "sharded"),
         "--mesh-shape": (args.mesh_shape.replace(" ", "") != "1,1", "launch"),
         "--tenants": (args.tenants > 0, "tenants"),
+        "--tenant-rank": (args.tenant_rank != 4, "tenants"),
+        "--tenant-budget-mb": (args.tenant_budget_mb is not None, "tenants"),
         "--ckpt-every": (args.ckpt_every > 0, "checkpoints"),
+        "--ckpt-dir": (args.ckpt_dir != "artifacts/serve_ckpt",
+                       "checkpoints"),
         "--metrics-port": (args.metrics_port is not None, "observability"),
         "--metrics-snapshot": (args.metrics_snapshot is not None,
                                "observability"),
