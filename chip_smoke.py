@@ -69,6 +69,16 @@ Phases, each printing its own lines:
    plain route against a factorization of the kernel run's own window at
    that request (the same inputs, so every fold's kernel work is covered,
    not only the first burst's);
+13b. LM NGD trainer — the same 2-layer full-width llama3.2-3b in bf16
+   under ``build_trainer`` (batch 8, seq 64, λ = 1e-3, lr 0.05; n = 8,
+   m = 595,344,384): (a) 3 exact dense steps through
+   ``ops.chol_solve_fused`` (gram_sv, cholesky, the substitution,
+   ngd_apply) against the same steps on the plain versions — losses,
+   step 0's natural gradient against the float64 solve of its own S and
+   v; (b) the same with blocked scores, 2 steps; (c) 6 streaming steps
+   (2 refreshes, 4 hits); (d) a checkpoint saved after step 1 of (a),
+   restored bit for bit, step 2 rerun; one profiled step on the wgmma
+   Gram;
 14. long prefill — all 28 layers of llama3.2-3b, one 32,768-token prompt
    (configs/shapes.py prefill_32k, batch 32 → 1): 28 launches, the
    profile showing the wgmma kernel; layer 0's attention at that shape
@@ -82,7 +92,8 @@ Phases, each printing its own lines:
    and the long prefill; per-kernel launches, times, plain and library
    times, bounds (the Gram's on the tensor cores' rate for fp32-accurate
    products, its fp32-FMA bound printed beside; the Cholesky also at n =
-   256 and 2048, flash attention at T = 1024 and 32,768).
+   256 and 2048, flash attention at T = 1024 and 32,768; gram_sv and
+   ngd_apply also at the LM trainer's (8, 595,344,384) bf16).
 
 Any failed check raises, so the script exits non-zero. The last line is
 ``{"ok": true, "device": {...}}``.
@@ -91,6 +102,7 @@ Any failed check raises, so the script exits non-zero. The last line is
 """
 from __future__ import annotations
 
+import functools
 import gc
 import json
 import os
@@ -113,7 +125,8 @@ import numpy as np  # noqa: E402
 
 from repro_torch import configs  # noqa: E402
 from repro_torch.core import (BlockedScores, chol_factorize,  # noqa: E402
-                              chol_solve)
+                              chol_solve, is_blocked)
+from repro_torch.core.pytree import leaves  # noqa: E402
 from repro_torch.curvature import (CurvatureCache,  # noqa: E402
                                    StreamingCurvature, StreamingGram)
 from repro_torch.kernels import _build, ops  # noqa: E402
@@ -123,8 +136,9 @@ from repro_torch.kernels.ref import WGMMA_HEAD_DIMS  # noqa: E402
 from repro_torch.kernels.serve_solve import ROUTES as STREAM_ROUTES  # noqa: E402
 from repro_torch.kernels.serve_solve import (  # noqa: E402
     cross_tensor_cores, kernels_launched, stream_route_of, trisolve_columns)
-from repro_torch.launch.train import make_prefill  # noqa: E402
-from repro_torch.launch.trainer import build_server  # noqa: E402
+from repro_torch.launch.train import batch_to, make_prefill  # noqa: E402
+from repro_torch.launch.trainer import (build_server,  # noqa: E402
+                                        build_trainer)
 from repro_torch.models import get_api  # noqa: E402
 from repro_torch.models import layers as model_layers  # noqa: E402
 from repro_torch.optim import (NaturalGradient,  # noqa: E402
@@ -229,6 +243,35 @@ LM_MAX_TOKENS, LM_MAX_REQUESTS, LM_REFRESH, LM_SCORE_CHUNK = 64, 4, 16, 2
 LM_LOSS_GATE, LM_X_GATE, LM_LOGIT_GATE = 1e-3, 5e-3, 2e-2
 # configs/shapes.py prefill_32k, batch cut from 32 to 1: the whole model
 LONG_T = 32_768
+# The NGD trainer on the LM: the same 2-layer full-width llama3.2-3b, bf16,
+# under build_trainer at train_main's defaults (batch 8, seq 64, λ 1e-3,
+# NGD's lr 0.05): n = 8 score rows of m = 595,344,384 columns, S 9.53 GB.
+# Steps: 3 exact dense, 2 exact blocked, 6 streaming (refresh every 3: 2
+# refreshes, 4 hits) at tests/test_examples.py:78-84's λ = 0.1, the
+# "moderate damping [that] absorbs the staleness between scheduled
+# refreshes" (no drift guard: at λ = 1e-3 a stale W sends the smoke
+# model's loss past 1e6 on the CPU).
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_LAM, TRAIN_LR = 8, 64, 1e-3, 0.05
+TRAIN_STEPS, TRAIN_BLOCKED_STEPS, TRAIN_STREAM_STEPS = 3, 2, 6
+TRAIN_REFRESH, TRAIN_STREAM_LAM, TRAIN_STREAM_EXPECT = 3, 0.1, (2, 4)
+# Kernels against the plain versions over the same steps. v is the bf16
+# gradient widened to fp32, so gram_sv's rounding of v to the window's
+# dtype (kernel route only) is exact here and both routes solve the same
+# system. Losses: each step's loss is taken before its update, from params
+# the two routes have rounded to bf16 from updates that agree to fp32
+# noise, so 1e-3 relative (as the LM serving trace). Step 0's natural
+# gradient x, on its own S and v in float64 over column chunks: its
+# residual ‖(SᵀS + λI)x − v‖/‖v‖ and its max-abs distance to the float64
+# solve, each no worse than the plain route's plus 1e-3 (STEP_GATE's rule).
+# x = (v − Sᵀw)/λ cancels about four digits at λ = 1e-3 on any fp32 route,
+# and the residual multiplies x's error along the rows of S by ‖SSᵀ‖/λ:
+# both routes' residuals are far above 1 on the card while x stays within
+# ≈ 1e-3 of the float64 solve (PERF.md §6), so the residual alone cannot
+# tell a sound solve from a broken one. Step 0's batch's loss before and
+# after the steps is printed, not gated: at λ = 1e-3 a bf16 step is led
+# by v's part off the rows of S (the bf16 roundings of the gradient and
+# of the scores), which x carries as itself/λ (PERF.md §6).
+TRAIN_LOSS_GATE, TRAIN_RES_GATE = 1e-3, 1e-3
 
 KERNELS = {
     # name: (source, TPU kernel it replaces)
@@ -1731,6 +1774,258 @@ def long_prefill(cfg, T, device="cuda") -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 13b. the NGD trainer on the LM (build_trainer, the Algorithm-1 kernels)
+# ---------------------------------------------------------------------------
+
+class FirstSolve:
+    """A solver that keeps its first call's operands and result, (S, v,
+    x, λ), for the residual check after the step; ``take`` hands them
+    over once."""
+
+    def __init__(self, solver):
+        self.solver, self.first, self.armed = solver, None, True
+
+    def __call__(self, S, v, lam):
+        x = self.solver(S, v, lam)
+        if self.armed:
+            self.first, self.armed = (S, v, x, float(lam)), False
+        return x
+
+    def take(self):
+        first, self.first = self.first, None
+        return first
+
+
+def natgrad64(S, v, x, lam: float, chunk: int = 1 << 25) -> dict:
+    """x against the system it solves, in float64 over column chunks (2 GB
+    of float64 at a time at n = 8); S dense or blocked, v and x flat or per
+    block. ``residual``: ‖(SᵀS + λI)x − v‖/‖v‖; ``exact``: x64 = (v −
+    Sᵀ(SSᵀ + λI)⁻¹Sv)/λ in float64 and ``err``, max |x − x64| / max |x64|;
+    ``exact_residual``, x64's own residual; ``off``: ‖v − P v‖/‖v‖, P the
+    projector onto the rows of S (v's part that x64 carries as itself/λ);
+    ``off_share``: ‖v − P v‖/λ over ‖x64‖."""
+    blocks = S.blocks if is_blocked(S) else (S,)
+    widths = [b.shape[1] for b in blocks]
+
+    def pieces(t):
+        return tuple(t) if isinstance(t, (tuple, list)) \
+            else torch.split(t, widths)
+
+    chunks = [(b[:, j:j + chunk], vp[j:j + chunk], xp[j:j + chunk])
+              for b, vp, xp in zip(blocks, pieces(v), pieces(x))
+              for j in range(0, b.shape[1], chunk)]
+    n = blocks[0].shape[0]
+    W = torch.zeros((n, n), dtype=torch.float64, device=blocks[0].device)
+    u = torch.zeros((n,), dtype=torch.float64, device=W.device)
+    Sx = torch.zeros((n,), dtype=torch.float64, device=W.device)
+    for b, vp, xp in chunks:
+        b64 = b.double()
+        W += b64 @ b64.T
+        u += b64 @ vp.double()
+        Sx += b64 @ xp.double()
+    w = torch.linalg.solve(W + lam * torch.eye(n, dtype=W.dtype,
+                                               device=W.device), u)
+    # S·x64 = (Sv − W·w)/λ, so x64's residual needs no second pass for it
+    Sx64 = (u - W @ w) / lam
+    acc = dict.fromkeys(("r2", "r2_64", "v2", "x2_64", "d", "big"), 0.0)
+    for b, vp, xp in chunks:
+        b64, v64, x_ = b.double(), vp.double(), xp.double()
+        x64 = (v64 - b64.T @ w) / lam
+        acc["r2"] += float((b64.T @ Sx + lam * x_ - v64).square().sum())
+        acc["r2_64"] += float((b64.T @ Sx64 + lam * x64 - v64).square().sum())
+        acc["v2"] += float(v64.square().sum())
+        acc["x2_64"] += float(x64.square().sum())
+        acc["d"] = max(acc["d"], float((x_ - x64).abs().max()))
+        acc["big"] = max(acc["big"], float(x64.abs().max()))
+    off2 = max(acc["v2"] - float(u @ torch.linalg.solve(W, u)), 0.0)
+    return {"residual": (acc["r2"] / acc["v2"]) ** 0.5,
+            "exact_residual": (acc["r2_64"] / acc["v2"]) ** 0.5,
+            "err": acc["d"] / max(acc["big"], 1e-300),
+            "off": (off2 / acc["v2"]) ** 0.5,
+            "off_share": (off2 / acc["x2_64"]) ** 0.5 / lam}
+
+
+def add_launches(counts: dict, routes: dict) -> None:
+    """Add the launches since the last reset, by kernel and by Gram route."""
+    for key, n in ops.launch_counts().items():
+        counts[key] += n
+    for key, n in GRAM_ROUTES.items():
+        routes[key] += n
+
+
+def train_run(cfg, label: str, steps: int, *, solver="chol",
+              blocked: bool = False, curvature: str = "exact",
+              damping: float = TRAIN_LAM,
+              device: str = "cuda", counts=None, routes=None,
+              ckpt_dir=None, save_at=None) -> dict:
+    """``steps`` steps of ``build_trainer``'s NGD step_fn from the seed's
+    weights. Times each step (host clock, ended by a sync) and, for the
+    exact solve, checks step 0's natural gradient on its own S and v in
+    float64 (``natgrad64``); takes step 0's batch's loss at the seed's weights and
+    after the last step (``held``), and how many weights moved.
+    ``counts``/``routes`` (dicts) receive the steps' kernel launches and
+    the Gram's routes; ``save_at``: save the state after that step to
+    ``ckpt_dir`` and return it."""
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    first = FirstSolve(solver) if curvature == "exact" else None
+    init_state, step_fn, save_state, restore_state, data = build_trainer(
+        cfg, optimizer_name="ngd", lr=TRAIN_LR, damping=damping,
+        batch=TRAIN_BATCH, seq=TRAIN_SEQ, total_steps=steps,
+        solver=first or solver, blocked=blocked, curvature=curvature,
+        curvature_refresh=TRAIN_REFRESH, seed=SEED, device=device)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    state = init_state()
+    api, batch0 = get_api(cfg), batch_to(data.batch_at(0), device)
+    with torch.no_grad():
+        p0 = [t.clone() for t in leaves(state["params"])]
+        held = [float(api.loss(state["params"], batch0)[0])]
+    out = {"losses": [], "ms": [], "natgrad": None, "saved": None,
+           "step_fn": step_fn, "restore_state": restore_state}
+    for s in range(steps):
+        sync()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, s)
+        loss = float(metrics["loss"])
+        sync()
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        out["losses"].append(loss)
+        if counts is not None:
+            add_launches(counts, routes)
+        if first is not None and first.first is not None:
+            out["natgrad"] = natgrad64(*first.take())
+        if save_at == s:
+            save_state(ckpt_dir, s, state)
+            out["saved"] = state
+    out["metrics"], out["state"] = metrics, state
+    with torch.no_grad():
+        held.append(float(api.loss(state["params"], batch0)[0]))
+        moved = sum(int((a != b).sum()) for a, b in
+                    zip(leaves(state["params"]), p0))
+        big = max(float((a.float() - b.float()).abs().max())
+                  for a, b in zip(leaves(state["params"]), p0))
+    del p0
+    out["held"] = held
+    print(f"  {label}: loss " + " ".join(f"{x:.6f}" for x in out["losses"])
+          + "; step ms " + " ".join(f"{x:.1f}" for x in out["ms"])
+          + ("" if out["natgrad"] is None else
+             "; step 0's natural gradient: float64 residual {residual:.3e} "
+             "(the float64 solve's {exact_residual:.3e}), {err:.3e} from "
+             "the float64 solve; v off the rows of S {off:.3e}, that part "
+             "/λ is {off_share:.3f} of the float64 solve's norm"
+             .format(**out["natgrad"]))
+          + f"; step 0's batch: loss {held[0]:.6f} at the seed's weights, "
+          f"{held[1]:.6f} after the last step; {moved:,} weights moved, by "
+          f"at most {big:.3e}"
+          + (f"; peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB"
+             if device == "cuda" else ""), flush=True)
+    if not all(np.isfinite(out["losses"])):
+        raise AssertionError(f"{label}: losses not finite")
+    return out
+
+
+def lm_trainer_path(cfg, device: str = "cuda") -> dict:
+    """The NGD trainer on the LM (ROADMAP A1): (a) exact dense S through
+    ``ops.chol_solve_fused`` against the same steps on the plain versions,
+    (b) the same blocked, (c) the streaming curvature policy, (d) a
+    checkpoint round trip; one profiled step. Returns the kernel launches
+    of the kernel-route steps (``counts``) and the parameter count m."""
+    counts = dict.fromkeys(ops.launch_counts(), 0)
+    routes = dict.fromkeys(GRAM_ROUTES, 0)
+    plain = functools.partial(ops.chol_solve_fused, mode="ref")
+    ckpt_dir = Path(__file__).resolve().parent / "build" / "lm_trainer_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    m = None
+    runs = {}
+    for part, steps, blocked in (("dense", TRAIN_STEPS, False),
+                                 ("blocked", TRAIN_BLOCKED_STEPS, True)):
+        kern = train_run(cfg, f"({part}) kernels", steps,
+                         solver=ops.chol_solve_fused, blocked=blocked,
+                         device=device, counts=counts, routes=routes,
+                         ckpt_dir=ckpt_dir,
+                         save_at=1 if part == "dense" else None)
+        if m is None:
+            m = sum(t.numel() for t in leaves(kern["state"]["params"]))
+            print(f"  m = {m:,} parameters, n = {TRAIN_BATCH} samples, "
+                  f"S {TRAIN_BATCH}x{m} {cfg.dtype} "
+                  f"({TRAIN_BATCH * m * 2 / 1e9:.2f} GB)", flush=True)
+        kern.pop("state")
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        ref = train_run(cfg, f"({part}) plain versions", steps, solver=plain,
+                        blocked=blocked, device=device)
+        ref.pop("state")
+        loss_err = max(abs(a - b) / abs(b) for a, b in
+                       zip(kern["losses"], ref["losses"]))
+        kn, pn = kern["natgrad"], ref["natgrad"]
+        print(f"  ({part}) kernels vs plain: worst loss {loss_err:.2e} (gate "
+              f"{TRAIN_LOSS_GATE:g}); step 0's natural gradient: residual "
+              f"{kn['residual']:.3e} against {pn['residual']:.3e}, from the "
+              f"float64 solve {kn['err']:.3e} against {pn['err']:.3e} (gates: "
+              f"≤ plain + {TRAIN_RES_GATE:g}); step 0's batch's loss "
+              f"{kern['held'][0]:.6f} → {kern['held'][1]:.6f} (plain → "
+              f"{ref['held'][1]:.6f})", flush=True)
+        if not loss_err < TRAIN_LOSS_GATE:
+            raise AssertionError(f"LM trainer ({part}): losses {loss_err:.3e} "
+                                 "from the plain route")
+        for key in ("residual", "err"):
+            if not kn[key] <= pn[key] + TRAIN_RES_GATE:
+                raise AssertionError(f"LM trainer ({part}): natural gradient "
+                                     f"{key} {kn[key]:.3e}, plain "
+                                     f"{pn[key]:.3e}")
+        runs[part] = kern
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+
+    stream = train_run(cfg, f"(streaming, refresh every {TRAIN_REFRESH}, "
+                       f"λ = {TRAIN_STREAM_LAM:g})", TRAIN_STREAM_STEPS,
+                       curvature="streaming", damping=TRAIN_STREAM_LAM,
+                       device=device)
+    got = (stream["metrics"]["curvature_refreshes"],
+           stream["metrics"]["curvature_hits"])
+    print(f"  (streaming) refreshes {got[0]}, hits {got[1]} (expected "
+          f"{TRAIN_STREAM_EXPECT})", flush=True)
+    if got != TRAIN_STREAM_EXPECT:
+        raise AssertionError(f"LM trainer (streaming): refreshes, hits {got}")
+    del stream
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    # (d) the checkpoint saved after step 1 of the dense kernel run
+    dense = runs["dense"]
+    restored = dense["restore_state"](ckpt_dir, 1)
+    same = all(a.dtype == b.dtype and torch.equal(
+        a.view(torch.int16) if a.dtype == torch.bfloat16 else a,
+        b.view(torch.int16) if b.dtype == torch.bfloat16 else b)
+        if isinstance(a, torch.Tensor) else a == b
+        for a, b in zip(leaves(restored), leaves(dense["saved"])))
+    dense.pop("saved")
+    ops.reset_launch_counts()
+    _, metrics = dense["step_fn"](restored, 2)
+    loss2 = float(metrics["loss"])
+    add_launches(counts, routes)
+    err = abs(loss2 - dense["losses"][2]) / abs(dense["losses"][2])
+    print(f"  (checkpoint) restored leaves bit-equal to the saved ones: "
+          f"{same}; step 2 from the checkpoint: loss {loss2:.6f} against "
+          f"{dense['losses'][2]:.6f} uninterrupted ({err:.2e}, gate "
+          f"{TRAIN_LOSS_GATE:g})", flush=True)
+    if not same or not err < TRAIN_LOSS_GATE:
+        raise AssertionError("LM trainer: the checkpoint round trip differs")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    if device == "cuda":
+        profile_gram_path("one LM NGD step (exact, dense, kernels)",
+                          lambda: dense["step_fn"](restored, 2))
+        require_tensor_core_gram("LM NGD trainer", routes)
+    del restored, runs, dense
+    gc.collect()
+    return {"counts": counts, "m": m}
+
+
+# ---------------------------------------------------------------------------
 # 12. times and bounds at the main-path shape
 # ---------------------------------------------------------------------------
 
@@ -1748,7 +2043,8 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(name, n, m, k, es, bw, flops, gram_rate) -> tuple[float, str]:
+def bound(name, n, m, k, es, bw, flops, gram_rate,
+          v_es=None) -> tuple[float, str]:
     """Least time for the function: each input read once and each output
     written once, against the operations at peak — fp32, or for the Gram's
     products of window rows ``gram_rate``: the rate of fp32-accurate
@@ -1758,8 +2054,11 @@ def bound(name, n, m, k, es, bw, flops, gram_rate) -> tuple[float, str]:
     Cholesky n³/3; the larger wins. ``serve_solve`` counts the window
     twice: its apply pass needs all of w, so all of u = S·V, before its
     first column, and a window beyond the 50 MB of L2 (410 MB at the main
-    shape) is read from device memory again."""
+    shape) is read from device memory again. ``v_es``: the bytes of one
+    element of v where they differ from the window's (the NGD step's v is
+    fp32 beside a bf16 window)."""
     f4 = 4
+    ves = es if v_es is None else v_es
     win = n * m * es
     tri = n * (n + 1) * m                     # 2 flop × n(n+1)/2 × m
     nbytes, t_ops = {
@@ -1774,10 +2073,10 @@ def bound(name, n, m, k, es, bw, flops, gram_rate) -> tuple[float, str]:
                       2 * (n + k) * m * k / flops),
         "gram": (win + n * n * f4, tri / gram_rate),
         "gram_acc": (win + 2 * n * n * f4, tri / gram_rate),
-        "gram_sv": (win + m * es + n * n * f4 + n * f4,
+        "gram_sv": (win + m * ves + n * n * f4 + n * f4,
                     tri / gram_rate + 2 * n * m / flops),
         "cholesky": (2 * n * n * f4, n ** 3 / 3 / flops),
-        "ngd_apply": (win + n * f4 + m * es + m * f4, 2 * n * m / flops),
+        "ngd_apply": (win + n * f4 + m * ves + m * f4, 2 * n * m / flops),
         # the lower triangle read and written once, X read once; 6 flop a
         # rotation of a lower element, k rotations each
         "cholupdate": (n * (n + 1) * f4 + n * k * f4,
@@ -1874,6 +2173,58 @@ def algorithm1_timings(dtype, bw: float, flops: float,
         cases, library,
         lambda name: bound(name, N, M, 1, es, bw, flops, gram_rate),
         f"{str(dtype)[6:]}")
+
+
+def trainer_shape_timings(bw: float, flops: float, bf16_flops: float,
+                          m: int) -> dict:
+    """``gram_sv`` and ``ngd_apply`` at the LM trainer's shape: n = 8 rows
+    of a bf16 window of m columns, v as the step gives it (fp32 holding
+    bf16 values; ``gram_sv`` takes it rounded to bf16, ``ngd_apply`` in
+    fp32). First each kernel against its plain version on the same
+    inputs: ``gram_sv``'s W and u also against their float64 values over
+    column chunks (one fp32 sum over 6e8 columns, the plain version's, is
+    itself ≈ 1e-4 off), within PASS_TOL; ``ngd_apply`` (n = 8 terms a
+    column) against the plain version within PASS_TOL. Then the times. No
+    single PyTorch call takes a bf16 window with an fp32 result, so no
+    library time."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    n = TRAIN_BATCH
+    S = torch.randn((n, m), generator=gen, device="cuda",
+                    dtype=torch.bfloat16).mul_(m ** -0.5)
+    v = torch.randn((m,), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    v32, w = v.float(), torch.randn((n,), generator=gen, device="cuda")
+    W64 = gram64(S)
+    u64 = sum(S[:, j:j + (1 << 25)].double() @ v[j:j + (1 << 25)].double()
+              for j in range(0, m, 1 << 25))
+    (Wk, uk), (Wp, up) = (ops.gram_sv(S, v, mode=mode)
+                          for mode in ("kernel", "ref"))
+    x_err = rel(ops.ngd_apply(S, w, v32, TRAIN_LAM, mode="kernel"),
+                ops.ngd_apply(S, w, v32, TRAIN_LAM, mode="ref"))
+    errs = {"W": rel(Wk, W64), "u": rel(uk, u64), "W plain": rel(Wp, W64),
+            "u plain": rel(up, u64), "W kernel vs plain": rel(Wk, Wp)}
+    print(f"  ({n}, {m:,}) bf16 gram_sv vs float64: "
+          + ", ".join(f"{k} {e:.2e}" for k, e in errs.items())
+          + f" (gate {PASS_TOL:g}); ngd_apply vs plain {x_err:.2e} (gate "
+          f"{PASS_TOL:g})", flush=True)
+    if not (errs["W"] < PASS_TOL and errs["u"] < PASS_TOL
+            and x_err < PASS_TOL):
+        raise AssertionError(f"the LM trainer's shape: gram_sv {errs}, "
+                             f"ngd_apply {x_err:.3e}")
+    del W64, u64, Wk, uk, Wp, up
+    timing = {"iters": 3, "warmup": 1}
+    out = time_cases(
+        {"gram_sv": lambda mode: ops.gram_sv(S, v, mode=mode)}, {},
+        lambda name: bound(name, n, m, 1, 2, bw, flops, bf16_flops),
+        f"({n}, {m:,}) bf16", **timing)
+    # v read in fp32: the bound counts its 4 bytes a column
+    out.update(time_cases(
+        {"ngd_apply": lambda mode: ops.ngd_apply(S, w, v32, TRAIN_LAM,
+                                                 mode=mode)}, {},
+        lambda name: bound(name, n, m, 1, 2, bw, flops, bf16_flops, v_es=4),
+        f"({n}, {m:,}) bf16, v fp32", **timing))
+    del S, v, v32
+    return out
 
 
 def cholupdate_timings(bw: float, flops: float) -> dict:
@@ -2011,13 +2362,22 @@ def main() -> int:
     paths["LM serving"] = lm_serving_path(lm_cfg)["counts"]
     gc.collect()
     torch.cuda.empty_cache()
+    phase(f"LM NGD trainer, {LM_ARCH} at published widths, {LM_LAYERS} "
+          f"layers, bf16, batch {TRAIN_BATCH}, seq {TRAIN_SEQ}, λ = "
+          f"{TRAIN_LAM:g}, lr {TRAIN_LR:g}")
+    trainer = lm_trainer_path(lm_cfg)
+    paths["LM NGD trainer"] = trainer["counts"]
+    for kname in ("gram_sv", "cholesky", "trisolve", "ngd_apply"):
+        require_launches("LM NGD trainer", paths["LM NGD trainer"], kname)
+    gc.collect()
+    torch.cuda.empty_cache()
     phase(f"long prefill, {LM_ARCH}, all 28 layers, bf16, one prompt of "
           f"{LONG_T} tokens")
     paths["long prefill"] = long_prefill(configs.get_config(LM_ARCH),
                                          LONG_T)["counts"]
     gc.collect()
     torch.cuda.empty_cache()
-    for label in ("LM serving", "long prefill"):
+    for label in ("LM serving", "LM NGD trainer", "long prefill"):
         print(f"  launches on {label}: " + ", ".join(
             f"{k}={v}" for k, v in paths[label].items() if v))
 
@@ -2046,6 +2406,9 @@ def main() -> int:
     timings(torch.bfloat16, PER_MB, bw, flops)
     t32.update(algorithm1_timings(torch.float32, bw, flops, tf32_flops / 3))
     algorithm1_timings(torch.bfloat16, bw, flops, bf16_flops)
+    phase(f"kernel times at the LM trainer's shape ({TRAIN_BATCH}, "
+          f"{trainer['m']:,}), bf16")
+    trainer_shape_timings(bw, flops, bf16_flops, trainer["m"])
     phase("Cholesky times (path A's n)")
     cholesky_timings(bw, flops)
     phase(f"cholupdate times, k = {SLIDE_K}")

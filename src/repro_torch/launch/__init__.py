@@ -1,4 +1,6 @@
-"""Step factories and the serving front (port of ``repro.launch``):
-``train`` (score pass, prefill, greedy serve step) and ``trainer``
-(``ServeHandles``, ``build_server``). The training loop, meshes,
-shardings, the supervisor and the dry-run come with later slices."""
+"""Step factories, the trainer and the serving front (port of
+``repro.launch``): ``train`` (the AdamW and NGD train steps, score pass,
+prefill, greedy serve step), ``trainer`` (``build_trainer``,
+``train_main``, ``ServeHandles``, ``build_server``) and ``supervisor``
+(the checkpoint/restart loop). Meshes, shardings and the dry-run come
+with the launch tooling (``repro_torch.roadmap``)."""

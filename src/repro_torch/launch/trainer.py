@@ -1,28 +1,142 @@
-"""The serving front (port of the serving half of
-``repro/launch/trainer.py``): config → model → seeded curvature window →
+"""End-to-end trainer CLI and the serving front (port of
+``repro/launch/trainer.py``): config → data → optimizer → supervised loop
+with checkpoint/restart, and config → model → seeded curvature window →
 ``SolveServer``.
+
+    PYTHONPATH=src python -m repro_torch.launch.trainer --arch llama3.2-3b \
+        --smoke --device cpu --optimizer ngd --steps 6
+
+``--smoke`` selects the reduced config (CPU-runnable); ``--optimizer
+ngd`` is the paper's damped natural gradient (Algorithm 1) end to end.
+Entry points run on CUDA unless given ``device="cpu"`` / ``--device
+cpu``, where the kernels' plain versions run.
 
 ``build_server`` is the eager replicated server of the reference. Its
 other flavours raise ``NotImplementedError`` naming the queue that ports
 them (``repro_torch.roadmap``): ``layout``/``async_`` (the sharded tier),
-the tenant options and the observability hooks and audit. The trainer
-(``build_trainer``, ``train_main``) and ``build_fleet`` come with later
-slices too.
+the tenant options and the observability hooks and audit; so do
+``train_main``'s ``--mesh-shape`` away from ``1,1`` and ``build_fleet``.
 """
 from __future__ import annotations
+
+import argparse
+import time
 
 import numpy as np
 import torch
 
+from repro_torch import configs
+from repro_torch.checkpoint import checkpoint as ckpt
 from repro_torch.core.device import resolve_device
 from repro_torch.core.pytree import leaves, params_from_arrays, tree_map
 from repro_torch.data import SyntheticLM
 from repro_torch.launch import train as T
+from repro_torch.launch.supervisor import SupervisorConfig, run_supervised
 from repro_torch.models.api import get_api
+from repro_torch.optim import AdamW, NaturalGradient, warmup_cosine
 from repro_torch.optim.scores import flatten_like
 from repro_torch.roadmap import queue
 
-__all__ = ["ServeHandles", "build_server"]
+__all__ = ["ServeHandles", "build_server", "build_trainer", "train_main"]
+
+
+def _place_params(params, dev: torch.device):
+    """A parameter tree of tensors or numpy arrays (e.g. the JAX LM's,
+    through ``params_from_arrays``) on ``dev``."""
+    if all(isinstance(t, torch.Tensor) for t in leaves(params)):
+        return tree_map(lambda t: t.to(dev), params)
+    return params_from_arrays(params, device=dev)
+
+
+def build_trainer(cfg, *, optimizer_name: str, lr: float, damping: float,
+                  batch: int, seq: int, total_steps: int, solver="chol",
+                  momentum: float = 0.9, score_chunk=None,
+                  blocked: bool = False, curvature: str = "exact",
+                  curvature_refresh: int = 10, curvature_drift_tol=None,
+                  curvature_drift_frac=None, seed: int = 0, params=None,
+                  device=None):
+    """Returns (init_state, step_fn, save_state, restore_state, data).
+
+    ``solver``: a name in ``repro_torch.core.SOLVERS`` or any
+    ``f(S, v, λ) -> x`` — ``repro_torch.kernels.ops.chol_solve_fused``
+    runs Algorithm 1 on the hand-written kernels.
+
+    ``blocked``: NGD keeps S as per-layer BlockedScores blocks — no flat
+    (n, m) score buffer is ever materialized (the paper-scale memory
+    ceiling of the dense path).
+
+    ``curvature``: "exact" re-solves the damped Fisher from scratch every
+    step (the paper; the default); "streaming" carries the n×n Gram
+    across steps with a full refresh every ``curvature_refresh`` steps
+    (and on residual drift past ``curvature_drift_tol`` — or, when
+    ``curvature_drift_frac`` is set instead, past the threshold autotuned
+    from the damping schedule's trust-region ratio; the static tol
+    overrides the autotune) — the O(n²·m) pass is skipped on cache-hit
+    steps.
+
+    ``params``: a parameter tree (tensors, or numpy arrays such as the JAX
+    LM's) that ``init_state`` starts from in place of one drawn from
+    ``seed``. ``device``: CUDA by default (raises without a GPU); "cpu"
+    runs the plain versions. The reference's ``mesh`` is not taken (one
+    device), and ``step_fn`` has no ``jitted``/``shardings`` (PyTorch
+    runs eagerly).
+    """
+    dev = resolve_device(device)
+    api = get_api(cfg)
+    data = SyntheticLM(cfg, batch=batch, seq=seq, seed=seed)
+    sched = warmup_cosine(lr, warmup_steps=max(total_steps // 20, 1),
+                          total_steps=total_steps)
+
+    if curvature not in ("exact", "streaming", None):
+        raise ValueError(f"unknown curvature mode {curvature!r}")
+    if curvature == "streaming":
+        if optimizer_name != "ngd":
+            raise ValueError(
+                "curvature='streaming' maintains the NGD damped-Fisher "
+                f"factorization; it has no meaning for {optimizer_name!r}")
+        if solver != "chol":
+            raise ValueError(
+                "curvature='streaming' replaces the Cholesky dual solve "
+                f"and cannot honor solver={solver!r}; use solver='chol' "
+                "or curvature='exact'")
+
+    if optimizer_name == "ngd":
+        if curvature == "streaming":
+            from repro_torch.curvature import StreamingCurvature
+            policy = StreamingCurvature(batch,
+                                        refresh_every=curvature_refresh,
+                                        drift_tol=curvature_drift_tol,
+                                        drift_frac=curvature_drift_frac,
+                                        device=dev)
+        else:
+            policy = None
+        opt = NaturalGradient(sched, damping=damping, solver=solver,
+                              momentum=momentum, curvature=policy)
+        tstep = T.make_ngd_train_step(api, opt, score_chunk=score_chunk,
+                                      blocked=blocked)
+    else:
+        opt = AdamW(sched)
+        tstep = T.make_train_step(api, opt)
+
+    def init_state():
+        p = api.init_params(torch.Generator(device=dev).manual_seed(seed)) \
+            if params is None else _place_params(params, dev)
+        return {"params": p, "opt": opt.init(p)}
+
+    def step_fn(state, step):
+        b = T.batch_to(data.batch_at(step), dev)
+        new_params, opt_state, metrics = tstep(state["params"], state["opt"],
+                                               b)
+        return {"params": new_params, "opt": opt_state}, metrics
+
+    def save_state(d, step, state):
+        ckpt.save(d, step, state, metadata={"arch": cfg.name})
+
+    def restore_state(d, step):
+        state, _ = ckpt.restore(d, step, init_state())
+        return state
+
+    return init_state, step_fn, save_state, restore_state, data
 
 
 class ServeHandles:
@@ -89,10 +203,8 @@ def _build_serve_front(cfg, *, window: int, seq: int, score_chunk=None,
     data = SyntheticLM(cfg, batch=window, seq=seq, seed=seed)
     if params is None:
         params = api.init_params(torch.Generator(device=dev).manual_seed(seed))
-    elif all(isinstance(t, torch.Tensor) for t in leaves(params)):
-        params = tree_map(lambda t: t.to(dev), params)
-    else:                                  # numpy arrays, e.g. the JAX LM's
-        params = params_from_arrays(params, device=dev)
+    else:
+        params = _place_params(params, dev)
     _, unravel = flatten_like(params)
     # request rows carry the window's 1/√n normalization so folds are
     # exchangeable with the seeded rows
@@ -168,3 +280,87 @@ def build_server(cfg, *, window: int, seq: int, damping: float = 1e-3,
     server = SolveServer(state, batcher=batcher, adaptation=adaptation,
                          policy=policy, jitter=jitter)
     return server, handles
+
+
+def train_main(argv=None):
+    ap = argparse.ArgumentParser(
+        description="NGD / AdamW training of a model of the zoo under the "
+                    "checkpointing supervisor")
+    ap.add_argument("--arch", choices=configs.list_archs(), required=True)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda; 'cpu' runs the "
+                         "plain versions of the kernels)")
+    ap.add_argument("--optimizer", choices=["adamw", "ngd"], default="adamw")
+    ap.add_argument("--solver", default="chol",
+                    choices=["chol", "eigh", "svd", "cg"])
+    ap.add_argument("--blocked", action="store_true",
+                    help="per-layer BlockedScores NGD path (no flat S)")
+    ap.add_argument("--curvature", choices=["exact", "streaming"],
+                    default="exact",
+                    help="per-step exact factorization (paper) or the "
+                         "cross-step streaming curvature cache")
+    ap.add_argument("--curvature-refresh", type=int, default=10,
+                    help="streaming: full Gram refresh period (steps)")
+    ap.add_argument("--curvature-drift-tol", type=float, default=None,
+                    help="streaming: refresh when the solve's relative "
+                         "residual exceeds this (static; overrides "
+                         "--curvature-drift-frac)")
+    ap.add_argument("--curvature-drift-frac", type=float, default=None,
+                    help="streaming: autotune the drift threshold as this "
+                         "fraction of the damping schedule's trust-region "
+                         "ratio (repro_torch.core.auto_drift_tol)")
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--lr", type=float, default=None)
+    ap.add_argument("--damping", type=float, default=1e-3)
+    ap.add_argument("--mesh-shape", default="1,1",
+                    help="1,1 only: meshes come with the sharded tier")
+    ap.add_argument("--ckpt-dir", default="artifacts/ckpt")
+    ap.add_argument("--ckpt-every", type=int, default=25)
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--inject-failure-at", type=int, default=None)
+    args = ap.parse_args(argv)
+    if args.mesh_shape.replace(" ", "") != "1,1":
+        raise NotImplementedError(f"--mesh-shape comes with {queue('sharded')}")
+
+    cfg = configs.get_smoke(args.arch) if args.smoke \
+        else configs.get_config(args.arch)
+    lr = args.lr if args.lr is not None else \
+        (0.05 if args.optimizer == "ngd" else 3e-3)
+
+    init_state, step_fn, save_state, restore_state, _ = build_trainer(
+        cfg, optimizer_name=args.optimizer, lr=lr, damping=args.damping,
+        batch=args.batch, seq=args.seq, total_steps=args.steps,
+        solver=args.solver, blocked=args.blocked, curvature=args.curvature,
+        curvature_refresh=args.curvature_refresh,
+        curvature_drift_tol=args.curvature_drift_tol,
+        curvature_drift_frac=args.curvature_drift_frac, device=args.device)
+
+    losses = []
+
+    def logging_step(state, step):
+        t0 = time.time()
+        state, metrics = step_fn(state, step)
+        loss = float(metrics["loss"])          # waits for the step
+        losses.append(loss)
+        if step % args.log_every == 0:
+            print(f"step {step:5d} loss {loss:8.4f} "
+                  f"({(time.time() - t0) * 1e3:.0f} ms)", flush=True)
+        return state, metrics
+
+    sup = SupervisorConfig(total_steps=args.steps, ckpt_dir=args.ckpt_dir,
+                           ckpt_every=args.ckpt_every,
+                           inject_failure_at=args.inject_failure_at)
+    state, report = run_supervised(sup, init_state=init_state,
+                                   step_fn=logging_step,
+                                   save_state=save_state,
+                                   restore_state=restore_state)
+    print(f"done: final loss {losses[-1]:.4f} "
+          f"(first {losses[0]:.4f}); report={report}")
+    return losses, report
+
+
+if __name__ == "__main__":
+    train_main()

@@ -16,10 +16,12 @@ name in ``repro_torch.core.SOLVERS`` or any ``f(S, v, λ) -> x``, e.g.
 ``repro_torch.kernels.ops.chol_solve_fused``, which runs the hand-written
 kernels on CUDA tensors.
 
-``curvature=`` takes ``None`` or ``"exact"`` (solve from scratch every
-step, the paper's method). The streaming policies themselves are ported
-(``repro_torch.curvature``); taking one here waits on the NGD trainer
-slice (``repro_torch.roadmap``) and raises ``NotImplementedError`` until then.
+``curvature=`` selects how the damped factorization is obtained: the
+default (``None`` / ``"exact"``) solves from scratch every step — the
+paper's method — while a ``repro_torch.curvature.StreamingCurvature``
+policy carries the n×n Gram across steps (age/drift-triggered refresh,
+re-damping at the current λ) with its ``CurvatureState`` inside
+``NGDState``.
 """
 from __future__ import annotations
 
@@ -32,7 +34,6 @@ from repro_torch.core.damping import ConstantDamping, DampingState
 from repro_torch.core.pytree import leaves, tree_map, unflatten_like
 from repro_torch.optim.schedules import constant
 from repro_torch.optim.scores import flatten_like
-from repro_torch.roadmap import queue
 
 __all__ = ["NGDState", "NaturalGradient", "global_norm"]
 
@@ -52,6 +53,7 @@ class NGDState(NamedTuple):
     step: int
     momentum: Any              # per-leaf heavy-ball tree (params-shaped)
     damping: DampingState
+    curvature: Any = None      # CurvatureState when a streaming policy is on
 
 
 class NaturalGradient:
@@ -65,7 +67,11 @@ class NaturalGradient:
         ``f(S, v, λ) -> x``.
       momentum: heavy-ball coefficient μ (0 disables).
       clip_natgrad_norm: optional global-norm clip on the natural gradient.
-      curvature: ``None`` / ``"exact"``: the per-step solve.
+      curvature: ``None`` / ``"exact"`` for the per-step solve, or a
+        ``repro_torch.curvature.StreamingCurvature`` policy to amortize the
+        Gram across steps (replaces the solver; its state rides in
+        ``NGDState.curvature``). The policy's ``n`` must equal the per-step
+        sample count of ``scores``.
     """
 
     requires_scores = True
@@ -82,23 +88,37 @@ class NaturalGradient:
         self.solver = get_solver(solver) if isinstance(solver, str) else solver
         self.momentum = float(momentum)
         self.clip = clip_natgrad_norm
-        if curvature not in (None, "exact"):
-            raise NotImplementedError(
-                "curvature= takes None or 'exact' in the torch port; the "
-                "streaming policies of the curvature slice "
-                "(repro_torch.curvature) reach the optimizer with "
-                f"{queue('trainer')}; got {curvature!r}")
+        if isinstance(curvature, str) and curvature == "exact":
+            curvature = None
+        if curvature is not None and not hasattr(curvature, "solve"):
+            raise ValueError(
+                "curvature= takes None/'exact' or a policy with "
+                "init()/solve() (e.g. repro_torch.curvature."
+                "StreamingCurvature(n=batch)); got " + repr(curvature))
+        self.curvature = curvature
 
     def init(self, params) -> NGDState:
         return NGDState(
             step=0,
             momentum=tree_map(lambda p: torch.zeros(
                 p.shape, dtype=_acc_dtype(p.dtype), device=p.device), params),
-            damping=self.damping_policy.init())
+            damping=self.damping_policy.init(),
+            curvature=None if self.curvature is None
+            else self.curvature.init())
 
-    def _nat_grad_tree(self, grads, scores, damping: DampingState):
-        """Solve (SᵀS + λI) x = v; x as a grads-shaped tree."""
+    def _nat_grad_tree(self, grads, scores, damping: DampingState, cstate):
+        """Solve (SᵀS + λI) x = v; returns (x as a grads-shaped tree,
+        cstate')."""
         lam = damping.lam
+        if self.curvature is not None:
+            # the whole DampingState rides along so a drift_frac policy can
+            # autotune its refresh threshold from the trust-region ratio
+            def solve(S, v, lam):
+                return self.curvature.solve(S, v, lam, cstate,
+                                            damping_state=damping)
+        else:
+            def solve(S, v, lam):
+                return self.solver(S, v, lam), None
         gl = leaves(grads)
         if is_blocked(scores):
             # the gradient tree IS the blocked RHS: one (m_b,) piece per leaf
@@ -108,19 +128,21 @@ class NaturalGradient:
                     f"gradient leaf sizes {widths} don't match score block "
                     f"widths {tuple(scores.block_widths)}")
             v = tuple(g.reshape(-1).to(_acc_dtype(g.dtype)) for g in gl)
-            x = self.solver(scores, v, lam)
+            x, cstate = solve(scores, v, lam)
             return unflatten_like(grads, [
                 xb.reshape(g.shape).to(_acc_dtype(xb.dtype))
-                for xb, g in zip(x, gl)])
+                for xb, g in zip(x, gl)]), cstate
         v, unravel = flatten_like(grads)
-        nat = self.solver(scores, v.to(_acc_dtype(v.dtype)), lam)
-        return tree_map(lambda x: x.to(_acc_dtype(x.dtype)), unravel(nat))
+        nat, cstate = solve(scores, v.to(_acc_dtype(v.dtype)), lam)
+        return tree_map(lambda x: x.to(_acc_dtype(x.dtype)),
+                        unravel(nat)), cstate
 
     def update(self, grads, state: NGDState, params, *, scores):
         """Returns (updates, new_state); add the updates to the params.
         ``scores`` is S: dense (n, m) or blocked in flatten order."""
         del params  # the signature of the reference; NGD needs no params
-        nat = self._nat_grad_tree(grads, scores, state.damping)
+        nat, cstate = self._nat_grad_tree(grads, scores, state.damping,
+                                          state.curvature)
         if self.clip is not None:
             scale = torch.clamp(self.clip / (global_norm(nat) + 1e-12),
                                 max=1.0)
@@ -128,7 +150,7 @@ class NaturalGradient:
         buf = tree_map(lambda b, x: self.momentum * b + x, state.momentum, nat)
         lr = self.lr(state.step)
         updates = tree_map(lambda b, g: (-lr * b).to(g.dtype), buf, grads)
-        return updates, NGDState(state.step + 1, buf, state.damping)
+        return updates, NGDState(state.step + 1, buf, state.damping, cstate)
 
     def update_damping(self, state: NGDState, *, actual_reduction,
                        predicted_reduction) -> NGDState:

@@ -35,16 +35,21 @@ __all__ = ["flatten_like", "lazy_score_blocks", "make_fisher_matvec",
 def flatten_like(params):
     """(flat, unravel) for a parameter tree, as ``ravel_pytree``: leaves
     concatenated in flatten order in their promoted dtype; ``unravel``
-    restores shapes and dtypes."""
+    restores the shapes and, where the leaves' dtypes differ, each leaf's
+    dtype. Where they share one dtype ``unravel`` keeps the dtype of what
+    it is given (``ravel_pytree``'s dtype-polymorphic unravel), so an fp32
+    natural gradient of a bf16 model stays fp32."""
     ls = leaves(params)
     dtype = functools.reduce(torch.promote_types, [p.dtype for p in ls])
     flat = torch.cat([p.reshape(-1).to(dtype) for p in ls])
+    uniform = all(p.dtype == dtype for p in ls)
     shapes = [(p.shape, p.dtype, p.numel()) for p in ls]
 
     def unravel(x: torch.Tensor):
         out, off = [], 0
         for shape, dt, size in shapes:
-            out.append(x[off:off + size].reshape(shape).to(dt))
+            piece = x[off:off + size].reshape(shape)
+            out.append(piece if uniform else piece.to(dt))
             off += size
         return unflatten_like(params, out)
 

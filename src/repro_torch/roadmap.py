@@ -7,8 +7,7 @@ from __future__ import annotations
 __all__ = ["QUEUES", "queue"]
 
 QUEUES = {
-    "trainer": ("A1", "the NGD trainer on the LM"),
-    "checkpoints": ("A3", "checkpoints"),
+    "checkpoints": ("A3", "the journal and serve-state checkpoints"),
     "observability": ("A4", "observability"),
     "tenants": ("A5", "tenants"),
     "models": ("A6", "the other model families"),

@@ -36,7 +36,8 @@ def test_port_imports_no_jax_and_no_repro():
                      "configs.llama3_8b", "configs.gemma2_2b",
                      "configs.gemma2_9b", "data", "data.pipeline", "launch",
                      "launch.train", "launch.trainer", "serve.main",
-                     "serve.__main__"):
+                     "serve.__main__", "launch.supervisor", "checkpoint",
+                     "checkpoint.checkpoint"):
             assert "repro_torch." + need in names, need
         print(len(names))
     """)

@@ -15,6 +15,7 @@ import torch
 
 from _torch_parity import pair, rel
 from repro_torch.core import BlockedScores
+from repro_torch.curvature import StreamingCurvature
 from repro_torch.kernels import ops
 from repro_torch.optim import (AdamW, NaturalGradient, constant, flatten_like,
                                global_norm, lazy_score_blocks,
@@ -251,8 +252,15 @@ def test_ngd_curvature_policy_is_for_a_later_slice():
            for opt in (NaturalGradient(0.1, curvature="exact"),
                        NaturalGradient(0.1))]
     assert torch.equal(*upd)
-    with pytest.raises(NotImplementedError, match="curvature slice"):
+    # a policy without solve() is refused with the reference's ValueError;
+    # a StreamingCurvature is taken and its state rides in NGDState
+    with pytest.raises(ValueError, match="curvature="):
         NaturalGradient(0.1, curvature=object())
+    opt = NaturalGradient(0.1, curvature=StreamingCurvature(4, device="cpu"))
+    st = opt.init(g)
+    assert st.curvature.stats.refreshes == 0
+    _, st = opt.update(g, st, g, scores=S)
+    assert (st.curvature.stats.refreshes, st.curvature.stats.hits) == (1, 0)
 
 
 def test_ngd_rejects_misaligned_blocks():
