@@ -25,6 +25,13 @@ Phases, each printing its own lines:
    with fold rows, one mixed-λ microbatch, age refreshes; the same trace
    through the port on the CPU (plain versions throughout) is the
    reference; every streaming pass on the 16-byte route;
+4b. serving path, dense, observed — the same trace with a fold journal,
+   a metrics registry, a health monitor (the audit every 4 maintenance
+   passes), a tracer and a flight recorder: responses bit-identical to
+   the unobserved run's, the journal replayed on the card (in memory and
+   through its npz) onto the live state's full fingerprint, a serve-state
+   checkpoint restored bit for bit, a forced incident bundle analyzed on
+   the card with every fingerprint verified and no bad event;
 5. serving path, blocked — the same window in four blocks, same trace;
 6. Algorithm 1 — ``chol_solve_fused`` at the Table-1 shapes (256, 1024
    and 2048 samples × 100_000 parameters, λ = 1e-3), dense and (at 1024)
@@ -69,6 +76,16 @@ Phases, each printing its own lines:
    plain route against a factorization of the kernel run's own window at
    that request (the same inputs, so every fold's kernel work is covered,
    not only the first burst's);
+13a. LM serving CLI — ``serve_main`` (``python -m repro_torch.serve``) at
+   llama3.2-3b's published widths, 2 layers, at the reference's defaults
+   (12 requests, window 8, seq 16, burst 3, a checkpoint every 8 rounds
+   and at exit, the audit every 4 maintenance passes) with the metrics
+   endpoint (self-scraped), a snapshot, a trace and a profile: the
+   health, scrape and trace lines, a span a request, fold_cols and flash
+   attention launched, the exit checkpoint (≈ 20 GB, in a temporary
+   directory) restored onto the card bit for bit; then ``--smoke`` on the
+   card and on the CPU: the first three bursts' losses within 1e-3, equal
+   verdicts, each checkpoint restored into the other run's tree;
 13b. LM NGD trainer — the same 2-layer full-width llama3.2-3b in bf16
    under ``build_trainer`` (batch 8, seq 64, λ = 1e-3, lr 0.05; n = 8,
    m = 595,344,384): (a) 3 exact dense steps through
@@ -102,13 +119,16 @@ Any failed check raises, so the script exits non-zero. The last line is
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import gc
+import io
 import json
 import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -124,9 +144,10 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 import numpy as np  # noqa: E402
 
 from repro_torch import configs  # noqa: E402
+from repro_torch.checkpoint import checkpoint as ckpt_io  # noqa: E402
 from repro_torch.core import (BlockedScores, chol_factorize,  # noqa: E402
                               chol_solve, is_blocked)
-from repro_torch.core.pytree import leaves  # noqa: E402
+from repro_torch.core.pytree import leaves, tree_map  # noqa: E402
 from repro_torch.curvature import (CurvatureCache,  # noqa: E402
                                    StreamingCurvature, StreamingGram)
 from repro_torch.kernels import _build, ops  # noqa: E402
@@ -143,10 +164,16 @@ from repro_torch.models import get_api  # noqa: E402
 from repro_torch.models import layers as model_layers  # noqa: E402
 from repro_torch.optim import (NaturalGradient,  # noqa: E402
                                params_from_arrays, per_sample_score_blocks)
-from repro_torch.serve import (OnlineAdaptation, SolveServer,  # noqa: E402
-                               TokenBudgetBatcher, init_serve_state)
-from repro_torch.serve.main import serve_trace  # noqa: E402
-from repro_torch.serve.state import serve_mode  # noqa: E402
+from repro_torch.obs import (FlightRecorder, HealthMonitor,  # noqa: E402
+                             MetricsRegistry, Tracer, analyze, load_bundle)
+from repro_torch.serve import (FoldJournal, OnlineAdaptation,  # noqa: E402
+                               SolveServer, TokenBudgetBatcher,
+                               init_serve_state, restore_serve_state,
+                               save_serve_state)
+from repro_torch.serve import main as serve_cli  # noqa: E402
+from repro_torch.serve.main import serve_main, serve_trace  # noqa: E402
+from repro_torch.serve.state import (serve_mode,  # noqa: E402
+                                     serve_state_from_tree, serve_state_tree)
 from repro_torch.tenants import (augmented_window,  # noqa: E402
                                  delta_factor, delta_fold, init_tenant_delta,
                                  project_rows, tenant_factorization)
@@ -549,9 +576,11 @@ def split(t, blocked):
     return tuple(p.contiguous() for p in torch.split(t, WIDTHS, dim=-1))
 
 
-def drive(S, vs, rows, lams, device, blocked):
+def drive(S, vs, rows, lams, device, blocked, hooks=None):
     """Serve the trace on ``device``; returns (responses, final state,
-    metrics summary)."""
+    metrics summary, initial state). ``hooks``: ``{"adaptation": kwargs,
+    "server": kwargs}`` of the measured server (the journal, audit and
+    observability attachments; the warm-up server has none)."""
     dev = torch.device(device)
     Sd = S.to(dev)
     Sd = BlockedScores.from_dense(Sd, WIDTHS) if blocked else Sd
@@ -559,10 +588,13 @@ def drive(S, vs, rows, lams, device, blocked):
     vs = [split(v.to(dev), blocked) for v in vs]
     rows = [split(r.to(dev), blocked) for r in rows]
 
-    def server(st):
+    def server(st, hooks=None):
+        hooks = hooks or {}
         return SolveServer(st, batcher=TokenBudgetBatcher(max_requests=PER_MB),
-                           adaptation=OnlineAdaptation(refresh_every=4),
-                           monitor_drift=False, fused=True)
+                           adaptation=OnlineAdaptation(
+                               refresh_every=4, **hooks.get("adaptation", {})),
+                           monitor_drift=False, fused=True,
+                           **hooks.get("server", {}))
 
     # warm-up on a throwaway server: folds return new states, so the
     # measured server starts from the same initial state
@@ -577,7 +609,7 @@ def drive(S, vs, rows, lams, device, blocked):
         torch.cuda.synchronize()
     ops.reset_launch_counts()       # count the measured trace only
 
-    srv = server(state)
+    srv = server(state, hooks)
     out = {}
     for b in range(0, REQUESTS, PER_MB):
         uids = {srv.submit(vs[i], damping=lams[i], rows=rows[i]): i
@@ -587,13 +619,13 @@ def drive(S, vs, rows, lams, device, blocked):
             out[uids[res.uid]] = x.float().cpu()
     if dev.type == "cuda":
         torch.cuda.synchronize()
-    return out, srv.state, srv.metrics.summary()
+    return out, srv.state, srv.metrics.summary(), state
 
 
 def main_path(trace, blocked: bool) -> dict:
     kind = "blocked" if blocked else "dense"
     t0 = time.perf_counter()
-    seen, (gx, gstate, summary) = stream_kernels_of(
+    seen, (gx, gstate, summary, _) = stream_kernels_of(
         lambda: drive(*trace, "cuda", blocked))
     counts = ops.launch_counts()
     routes = dict(STREAM_ROUTES)
@@ -603,7 +635,7 @@ def main_path(trace, blocked: bool) -> dict:
           f"(phase {t_gpu:.1f} s)  launches {counts}; streaming passes by "
           f"route {routes}", flush=True)
     t0 = time.perf_counter()
-    cx, cstate, csummary = drive(*trace, "cpu", blocked)
+    cx, cstate, csummary, _ = drive(*trace, "cpu", blocked)
     print(f"  {kind} CPU reference: p50 {csummary['p50_ms']:.1f} ms "
           f"(phase {time.perf_counter() - t0:.1f} s)", flush=True)
     worst = max(rel(gx[i], cx[i]) for i in range(REQUESTS))
@@ -632,7 +664,118 @@ def main_path(trace, blocked: bool) -> dict:
                              f"{routes}")
     require_vector_streaming(f"{kind} serving", seen)
     return {"counts": counts, "worst": worst, "W": w_err, "L": l_err,
-            "summary": summary}
+            "summary": summary, "responses": gx}
+
+
+def observed_path(trace, dense: dict) -> dict:
+    """The dense trace again, with a fold journal, a metrics registry, a
+    health monitor (the audit every 4 maintenance passes), a tracer and a
+    flight recorder attached. Its responses must be bit-identical to the
+    unobserved run's; the journal replayed from the initial state on the
+    card, in memory and through its npz, must land on the live state's
+    full fingerprint; a serve-state checkpoint must restore bit for bit;
+    and a forced incident bundle must replay on the card with every
+    fingerprint verified and no bad event. Files go to a temporary
+    directory, removed at the end."""
+    tmp = tempfile.mkdtemp(prefix="observed_")
+    try:
+        reg = MetricsRegistry()
+        mon = HealthMonitor(reg)
+        tracer = Tracer()
+        journal = FoldJournal()
+        rec = FlightRecorder(os.path.join(tmp, "incidents"))
+        hooks = {"adaptation": {"journal": journal, "audit_every": 4},
+                 "server": {"registry": reg, "health": mon, "tracer": tracer,
+                            "recorder": rec}}
+        t0 = time.perf_counter()
+        gx, live, summary, init = drive(*trace, "cuda", False, hooks=hooks)
+        counts = ops.launch_counts()
+        t_run = time.perf_counter() - t0
+        snap = reg.snapshot()
+        same = all(torch.equal(gx[i], dense["responses"][i])
+                   for i in range(REQUESTS))
+        worst = max(rel(gx[i], dense["responses"][i])
+                    for i in range(REQUESTS))
+        g = snap["gauges"]
+        ds = dense["summary"]
+        print(f"  observed GPU: p50 {summary['p50_ms']:.3f} ms  p99 "
+              f"{summary['p99_ms']:.3f} ms  {summary['rps']:.1f} req/s "
+              f"(unobserved: p50 {ds['p50_ms']:.3f} ms, p99 "
+              f"{ds['p99_ms']:.3f} ms, {ds['rps']:.1f} req/s; phase "
+              f"{t_run:.1f} s); responses bit-identical to the unobserved "
+              f"run's: {same} (worst {worst:.3e}); verdict {mon.verdict()}; "
+              f"{len(journal)} journal events; {live.stats.refreshes} "
+              f"refreshes; audits: condest {g.get('curvature.condest')}, "
+              f"residual {g.get('curvature.factor_residual')}; downdate "
+              f"margin {g.get('curvature.downdate_margin')}; "
+              f"{len(tracer.events())} spans; launches "
+              + ", ".join(f"{k}={v}" for k, v in counts.items() if v),
+              flush=True)
+        if not same:
+            raise AssertionError("observed serving: responses differ from "
+                                 "the unobserved run's")
+        if "curvature.condest" not in g or \
+                snap["counters"]["serve.requests"] != REQUESTS:
+            raise AssertionError(f"observed serving: the audit or the "
+                                 f"request counters are missing: {snap}")
+        if len(journal) != snap["counters"]["curvature.folds"] \
+                + live.stats.refreshes:
+            raise AssertionError("observed serving: the journal missed "
+                                 "a fold or a refresh")
+        t0 = time.perf_counter()
+        live_fp = live.fingerprint()
+        t_fp = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        replayed = journal.replay(init, OnlineAdaptation())
+        torch.cuda.synchronize()
+        t_replay = time.perf_counter() - t0
+        path = os.path.join(tmp, "journal.npz")
+        journal.save(path)
+        again = FoldJournal.load(path).replay(init, OnlineAdaptation())
+        ok_mem, ok_npz = replayed.fingerprint() == live_fp, \
+            again.fingerprint() == live_fp
+        print(f"  journal replay of {len(journal)} events from the initial "
+              f"state on the card: {t_replay:.3f} s; fingerprint(full=True) "
+              f"equal to the live one: {ok_mem}, through the npz "
+              f"({os.path.getsize(path)} B): {ok_npz} (one full "
+              f"fingerprint {t_fp:.2f} s)", flush=True)
+        if not (ok_mem and ok_npz):
+            raise AssertionError("observed serving: the journal's replay "
+                                 "is not bit-identical to the live state")
+        del replayed, again
+        t0 = time.perf_counter()
+        save_serve_state(os.path.join(tmp, "ckpt"), 1, live)
+        t_save = time.perf_counter() - t0
+        back, meta = restore_serve_state(os.path.join(tmp, "ckpt"), 1, init)
+        ok_ckpt = back.fingerprint() == live_fp and \
+            (back.lam0, back.slot, back.age, back.stats) == \
+            (live.lam0, live.slot, live.age, live.stats)
+        print(f"  save_serve_state {t_save:.3f} s, restore_serve_state "
+              f"bit for bit: {ok_ckpt} ({meta})", flush=True)
+        if not ok_ckpt:
+            raise AssertionError("observed serving: the checkpoint did not "
+                                 "restore bit for bit")
+        del back
+        t0 = time.perf_counter()
+        bundle = rec.capture("chip_smoke", force=True)
+        t_cap = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pm = analyze(load_bundle(bundle, device="cuda"))
+        t_an = time.perf_counter() - t0
+        print(f"  incident bundle {os.path.getsize(bundle)} B in "
+              f"{t_cap:.2f} s; analyzed on the card in {t_an:.2f} s: "
+              f"{pm['events_replayed']} events (seq {pm['snap_seq']} -> "
+              f"{pm['head_seq']}), fingerprints {pm['fingerprints_ok']}/"
+              f"{pm['fingerprints_checked']} ok, bit-identical to the live "
+              f"fingerprint: {pm['bit_identical']}, first bad event "
+              f"{pm['first_bad']}", flush=True)
+        if not (pm["bit_identical"] and pm["first_bad"] is None and
+                pm["fingerprints_ok"] == pm["fingerprints_checked"]):
+            raise AssertionError("observed serving: the incident bundle's "
+                                 "replay diverged")
+        return {"counts": counts, "summary": summary}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def profile(label: str, fn, prepare=None, calls=None) -> dict:
@@ -1715,16 +1858,263 @@ def lm_serving_path(cfg, device="cuda") -> dict:
     return kern
 
 
+class _Tee(io.TextIOBase):
+    """Writes to the real stdout and keeps a copy (the CLI's lines)."""
+
+    def __init__(self, out):
+        self.out, self.buf = out, io.StringIO()
+
+    def write(self, text):
+        self.buf.write(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def run_cli(argv, on_build=None) -> tuple:
+    """``serve_main(argv)`` with its output shown and kept; returns
+    (server, losses, the handles it built, its output, wall s, the wall s
+    of each checkpoint it wrote). ``on_build(server, handles)`` runs
+    before the first request."""
+    built, saves = [], []
+    build, save = serve_cli.build_server, ckpt_io.save
+
+    def spy_build(*args, **kw):
+        server, h = build(*args, **kw)
+        built.append(h)
+        if on_build is not None:
+            on_build(server, h)
+        return server, h
+
+    def spy_save(*args, **kw):
+        t0 = time.perf_counter()
+        out = save(*args, **kw)
+        saves.append(time.perf_counter() - t0)
+        return out
+
+    tee = _Tee(sys.stdout)
+    serve_cli.build_server, ckpt_io.save = spy_build, spy_save
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(tee):
+            server, losses = serve_main(argv)
+    finally:
+        serve_cli.build_server, ckpt_io.save = build, save
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return server, losses, built[0], tee.buf.getvalue(), \
+        time.perf_counter() - t0, saves
+
+
+def cli_line(out: str, head: str) -> str:
+    lines = [ln for ln in out.splitlines() if ln.startswith(head)]
+    if not lines:
+        raise AssertionError(f"LM serving CLI: no {head!r} line")
+    return lines[-1]
+
+
+def cli_tree(server, h) -> dict:
+    return {"serve": serve_state_tree(server.state), "params": h.params}
+
+
+def lm_cli_path() -> dict:
+    """``python -m repro_torch.serve --full --n-layers 2`` on the card at
+    the reference's defaults (12 requests, window 8, seq 16, burst 3, a
+    checkpoint every 8 rounds and at exit, the audit every 4 maintenance
+    passes) with the metrics endpoint, a snapshot, a trace and a profile;
+    the exit checkpoint restored bit for bit. Then the same CLI at
+    ``--smoke`` on the card and on the CPU (``cli_smoke``). Files go to a
+    temporary directory, removed at the end."""
+    tmp = tempfile.mkdtemp(prefix="serve_cli_")
+    try:
+        cfg = configs.get_config(LM_ARCH).scaled(n_layers=LM_LAYERS)
+        du = shutil.disk_usage(tmp)
+        print(f"  {tmp}: {du.free} B free of {du.total} B before the "
+              f"exit checkpoint (the window alone is 8 x m x 4 B)",
+              flush=True)
+        ck, snap_path = os.path.join(tmp, "ck"), os.path.join(tmp, "m.json")
+        trace_path, prof = os.path.join(tmp, "t.json"), \
+            os.path.join(tmp, "prof")
+        ops.reset_launch_counts()
+        server, losses, h, out, wall, saves = run_cli(
+            ["--arch", LM_ARCH, "--full", "--n-layers", str(LM_LAYERS),
+             "--device", "cuda", "--ckpt-dir", ck, "--metrics-port", "0",
+             "--metrics-snapshot", snap_path, "--trace-out", trace_path,
+             "--profile-dir", prof])
+        counts = ops.launch_counts()
+        for head in ("health: ", "metrics scrape: ", "health scrape: "):
+            cli_line(out, head)
+        verdict = cli_line(out, "health: ").split()[1]
+        with open(trace_path) as f:
+            spans = json.load(f)["traceEvents"]
+        with open(snap_path) as f:
+            snap = json.load(f)
+        requests = [e for e in spans if e["name"] == "request"]
+        rounds = ckpt_io.latest_step(ck)
+        ck_bytes = sum(p.stat().st_size for p in
+                       Path(ck, f"step_{rounds:09d}").iterdir())
+        st = server.state
+        m = st.S.shape[1]
+        window_b = st.S.numel() * st.S.element_size()
+        param_b = sum(t.numel() * t.element_size() for t in leaves(h.params))
+        print(f"  serve_main (kernels): {wall:.1f} s; m = {m:,}; verdict "
+              f"{verdict}; {len(requests)} request spans of {len(spans)}; "
+              f"snapshot: {snap['counters'].get('serve.requests')} requests; "
+              f"{server.adaptation._audit_step} audits; exit checkpoint at "
+              f"round {rounds}, {ck_bytes} B (window {window_b} B, params "
+              f"{param_b} B) written in "
+              + "/".join(f"{t:.1f}" for t in saves) + f" s; "
+              f"{cli_line(out, 'profile: ')}; "
+              f"launches " + ", ".join(f"{k}={v}" for k, v in counts.items()
+                                      if v), flush=True)
+        if len(requests) < len(losses) or len(losses) != 12:
+            raise AssertionError("LM serving CLI: fewer request spans "
+                                 "than requests")
+        if snap["counters"].get("serve.requests") != 12 or \
+                server.adaptation._audit_step < 1:
+            raise AssertionError("LM serving CLI: snapshot or audit missing")
+        for name in ("fold_cols", "flash_attention"):
+            require_launches("LM serving CLI", counts, name)
+        t0 = time.perf_counter()
+        like = cli_tree(server, h)
+        back, meta = ckpt_io.restore(ck, rounds, like)
+        t_restore = time.perf_counter() - t0
+        same = all(torch.equal(torch.as_tensor(a), torch.as_tensor(b))
+                   for a, b in zip(leaves(back), leaves(like)))
+        t0 = time.perf_counter()
+        fp_same = serve_state_from_tree(back["serve"], st).fingerprint() \
+            == st.fingerprint()
+        t_fp = time.perf_counter() - t0
+        print(f"  exit checkpoint restored onto the card in {t_restore:.1f} s"
+              f" ({meta}): every leaf equal to the live state's and params': "
+              f"{same}; ServeState fingerprint(full=True) equal: {fp_same} "
+              f"(both fingerprints {t_fp:.1f} s)", flush=True)
+        if not (same and fp_same):
+            raise AssertionError("LM serving CLI: the exit checkpoint did "
+                                 "not restore bit for bit")
+        del back, like, server, h, st
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        cli_smoke(tmp)
+        return {"counts": counts}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def cli_smoke(tmp: str, device: str = "cuda") -> None:
+    """The CLI at ``--smoke`` on ``device`` and on the CPU (twice: at all
+    threads and at one), checkpoints under ``tmp``. Gates, each request
+    relative:
+    - end to end, the first nine requests' losses within LM_LOSS_GATE of
+      the CPU's. From the tenth on the CLI's updates have blown the loss
+      up to ≈ 5e4 (both packages), and rounding alone moves it by more
+      than the gate (the two CPU runs), so the last burst's end-to-end
+      difference is printed;
+    - on the same inputs, every request (the last burst's too): its loss
+      within LM_LOSS_GATE of the CPU's loss of the same examples under a
+      copy of the run's own params, and its x within LM_X_GATE of v
+      re-solved on the plain route against the run's own window
+      (``same_inputs_check``), after up to nine folds;
+    - equal verdicts, and each run's checkpoint restored into the other
+      run's tree, leaves equal to the run's own."""
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    same_x, seen = {}, []
+
+    def watch(server, h):
+        same_inputs_check(server, same_x, sync)
+        score = h.score_grads
+
+        def recorded(params, ex):
+            out = score(params, ex)
+            seen.append((tree_map(lambda t: t.detach().cpu().clone(),
+                                  params), ex, float(out[0])))
+            return out
+        h.score_grads = recorded
+
+    smoke = {}
+    threads = torch.get_num_threads()
+    for run, dev, nthreads in (("card", device, threads),
+                               ("cpu", "cpu", threads), ("cpu1", "cpu", 1)):
+        torch.set_num_threads(nthreads)
+        try:
+            server, losses, h, out, wall, _ = run_cli(
+                ["--arch", LM_ARCH, "--device", dev, "--ckpt-dir",
+                 os.path.join(tmp, f"smoke_{run}")],
+                on_build=watch if run == "card" else None)
+        finally:
+            torch.set_num_threads(threads)
+        smoke[run] = {"server": server, "h": h, "losses": losses,
+                      "verdict": cli_line(out, "health: ").split()[1],
+                      "wall": wall}
+    card, cpu = smoke["card"], smoke["cpu"]
+
+    def loss_errs(a, b):
+        return [abs(x - y) / abs(y) for x, y in zip(a["losses"],
+                                                    b["losses"])]
+    gated = 3 * 3
+    errs, spread = loss_errs(card, cpu), loss_errs(smoke["cpu1"], cpu)
+    loss_err = max(errs[:gated])
+    same_loss = []
+    for params, ex, loss in seen:
+        ref = float(cpu["h"].score_grads(params, ex)[0])
+        same_loss.append(abs(loss - ref) / abs(ref))
+    same_x = [same_x[k] for k in sorted(same_x)]
+    print(f"  --smoke losses, {device}: "
+          + " ".join(f"{v:.6g}" for v in card["losses"])
+          + f"; vs the CPU per request: "
+          + " ".join(f"{v:.1e}" for v in errs)
+          + f"; CPU at 1 thread vs {threads}: "
+          + " ".join(f"{v:.1e}" for v in spread)
+          + "; same inputs, loss vs the CPU's: "
+          + " ".join(f"{v:.1e}" for v in same_loss)
+          + "; same inputs, x vs the plain re-solve: "
+          + " ".join(f"{v:.1e}" for v in same_x), flush=True)
+    cross = {}
+    for src, dst in (("card", "cpu"), ("cpu", "card")):
+        d = smoke[dst]
+        like = cli_tree(d["server"], d["h"])
+        back, _ = ckpt_io.restore(os.path.join(tmp, f"smoke_{src}"), 4,
+                                  like)
+        theirs = leaves(cli_tree(smoke[src]["server"], smoke[src]["h"]))
+        cross[src] = max(
+            rel(torch.as_tensor(a).cpu().float(),
+                torch.as_tensor(b).cpu().float())
+            for a, b in zip(leaves(back), theirs)
+            if torch.as_tensor(b).is_floating_point())
+        if any(torch.as_tensor(a).dtype != torch.as_tensor(b).dtype
+               or tuple(np.shape(a)) != tuple(np.shape(b))
+               for a, b in zip(leaves(back), leaves(like))):
+            raise AssertionError(f"LM serving CLI: the {src} checkpoint "
+                                 f"does not restore into the {dst} run")
+    print(f"  --smoke on {device} ({card['wall']:.1f} s) and on the CPU "
+          f"({cpu['wall']:.1f} s): worst loss of the first {gated} requests"
+          f" {loss_err:.2e}, on the same inputs of all {len(same_loss)} "
+          f"{max(same_loss):.2e} (gate {LM_LOSS_GATE:g}); worst x on the "
+          f"same inputs {max(same_x):.2e} (gate {LM_X_GATE:g}); verdicts "
+          f"{card['verdict']} / {cpu['verdict']}; each checkpoint restored"
+          f" into the other run's tree, leaves equal to its own run's "
+          f"(worst {max(cross.values()):.1e})", flush=True)
+    if not loss_err < LM_LOSS_GATE or len(same_loss) != 12 or \
+            not max(same_loss) < LM_LOSS_GATE or len(same_x) != 12 or \
+            not max(same_x) < LM_X_GATE or \
+            card["verdict"] != cpu["verdict"] or \
+            max(cross.values()) != 0.0:
+        raise AssertionError("LM serving CLI: the card's and the CPU's "
+                             "--smoke runs disagree")
+
+
 def long_prefill(cfg, T, device="cuda") -> dict:
     """The whole model's prefill of one T-token prompt through the serve
     front's prefill step, then one layer's attention at that shape held
     against the plain version."""
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
     api = get_api(cfg)
-    gen = torch.Generator(device=device).manual_seed(SEED + 13)
+    gen = torch.Generator().manual_seed(SEED + 13)
     t0 = time.perf_counter()
-    params = api.init_params(gen)
-    tokens = torch.randint(3, cfg.vocab, (1, T), generator=gen, device=device)
+    params = api.init_params(gen, device)
+    tokens = torch.randint(3, cfg.vocab, (1, T), generator=gen).to(device)
     prefill = make_prefill(api)
     sync()
     init_s = time.perf_counter() - t0
@@ -2184,9 +2574,11 @@ def trainer_shape_timings(bw: float, flops: float, bf16_flops: float,
     inputs: ``gram_sv``'s W and u also against their float64 values over
     column chunks (one fp32 sum over 6e8 columns, the plain version's, is
     itself ≈ 1e-4 off), within PASS_TOL; ``ngd_apply`` (n = 8 terms a
-    column) against the plain version within PASS_TOL. Then the times. No
-    single PyTorch call takes a bf16 window with an fp32 result, so no
-    library time."""
+    column) against the plain version within PASS_TOL. Then the times;
+    ``gram_sv``'s library call is ``torch.mm(S, Sv.T, out_dtype=fp32)``
+    with Sv = [S; v] built outside the timing (bf16 operands, an fp32
+    result), where this torch takes ``out_dtype`` — the script prints why
+    not where it does not. ``ngd_apply`` has no such call."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
     n = TRAIN_BATCH
     S = torch.randn((n, m), generator=gen, device="cuda",
@@ -2212,9 +2604,21 @@ def trainer_shape_timings(bw: float, flops: float, bf16_flops: float,
         raise AssertionError(f"the LM trainer's shape: gram_sv {errs}, "
                              f"ngd_apply {x_err:.3e}")
     del W64, u64, Wk, uk, Wp, up
+    Sv = torch.cat([S, v[None]])
+    library = {}
+    try:
+        got = torch.mm(S[:, :4096], Sv[:, :4096].T, out_dtype=torch.float32)
+        if got.dtype != torch.float32:
+            raise TypeError(f"torch.mm(out_dtype=) gave {got.dtype}")
+        library["gram_sv"] = lambda: torch.mm(S, Sv.T,
+                                              out_dtype=torch.float32)
+    except (TypeError, RuntimeError) as e:
+        print(f"  no library time for gram_sv: torch {torch.__version__}'s "
+              f"torch.mm(out_dtype=float32) on bf16 operands: {e}",
+              flush=True)
     timing = {"iters": 3, "warmup": 1}
     out = time_cases(
-        {"gram_sv": lambda mode: ops.gram_sv(S, v, mode=mode)}, {},
+        {"gram_sv": lambda mode: ops.gram_sv(S, v, mode=mode)}, library,
         lambda name: bound(name, n, m, 1, 2, bw, flops, bf16_flops),
         f"({n}, {m:,}) bf16", **timing)
     # v read in fp32: the bound counts its 4 bytes a column
@@ -2223,7 +2627,7 @@ def trainer_shape_timings(bw: float, flops: float, bf16_flops: float,
                                                  mode=mode)}, {},
         lambda name: bound(name, n, m, 1, 2, bw, flops, bf16_flops, v_es=4),
         f"({n}, {m:,}) bf16, v fp32", **timing))
-    del S, v, v32
+    del S, v, v32, Sv
     return out
 
 
@@ -2316,6 +2720,10 @@ def main() -> int:
     trace = make_trace()
     phase(f"serving path, dense window {N}x{M} fp32")
     dense = main_path(trace, blocked=False)
+    phase(f"serving path, dense window {N}x{M} fp32, observed: fold journal, "
+          f"metrics registry, health monitor (audit every 4), tracer, flight "
+          f"recorder")
+    observed = observed_path(trace, dense)
     phase(f"serving path, blocked window {WIDTHS}")
     blocked = main_path(trace, blocked=True)
 
@@ -2325,6 +2733,7 @@ def main() -> int:
     step_counts, step_inputs = trainer_path()
 
     paths = {"serving, dense": dense["counts"],
+             "serving, dense, observed": observed["counts"],
              "serving, blocked": blocked["counts"],
              "Algorithm 1": solve_counts, "NGD trainer": step_counts}
     for label, counts in paths.items():
@@ -2362,6 +2771,14 @@ def main() -> int:
     paths["LM serving"] = lm_serving_path(lm_cfg)["counts"]
     gc.collect()
     torch.cuda.empty_cache()
+    phase(f"LM serving CLI at the reference's defaults: python -m "
+          f"repro_torch.serve --full --n-layers {LM_LAYERS} (12 requests, "
+          f"window 8, seq 16, burst 3, checkpoints every 8 rounds and at "
+          f"exit, the audit every 4) with the metrics endpoint, snapshot, "
+          f"trace and profile; then --smoke on the card and on the CPU")
+    paths["LM serving CLI"] = lm_cli_path()["counts"]
+    gc.collect()
+    torch.cuda.empty_cache()
     phase(f"LM NGD trainer, {LM_ARCH} at published widths, {LM_LAYERS} "
           f"layers, bf16, batch {TRAIN_BATCH}, seq {TRAIN_SEQ}, λ = "
           f"{TRAIN_LAM:g}, lr {TRAIN_LR:g}")
@@ -2377,7 +2794,8 @@ def main() -> int:
                                          LONG_T)["counts"]
     gc.collect()
     torch.cuda.empty_cache()
-    for label in ("LM serving", "LM NGD trainer", "long prefill"):
+    for label in ("LM serving", "LM serving CLI", "LM NGD trainer",
+                  "long prefill"):
         print(f"  launches on {label}: " + ", ".join(
             f"{k}={v}" for k, v in paths[label].items() if v))
 

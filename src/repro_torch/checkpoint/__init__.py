@@ -1,8 +1,10 @@
 """Checkpoints (port of ``repro.checkpoint``): the atomic step directory of
-``checkpoint.py``, in the reference's on-disk layout. The fleet's
-manifests and npz bundles (``checkpoint/fleet.py``) come with tenants
-(``repro_torch.roadmap``)."""
+``checkpoint.py``, in the reference's on-disk layout, and the npz bundles
+of ``fleet.py``. The fleet's manifests and the tenants' spill come with
+later slices (``repro_torch.roadmap``)."""
 from repro_torch.checkpoint.checkpoint import (all_steps, latest_step,
                                                restore, save)
+from repro_torch.checkpoint.fleet import load_npz_bundle, save_npz_bundle
 
-__all__ = ["all_steps", "latest_step", "restore", "save"]
+__all__ = ["all_steps", "latest_step", "restore", "save",
+           "load_npz_bundle", "save_npz_bundle"]

@@ -126,7 +126,10 @@ def latest_step(ckpt_dir) -> Optional[int]:
 
 def _leaf_like(arr: np.ndarray, dtype: str, ref, device):
     """The stored array as a leaf of ``ref``'s kind: a tensor of ``ref``'s
-    dtype (on ``device``, else on ``ref``'s device) or a Python number."""
+    dtype (on ``device``, else on ``ref``'s device), a numpy array of its
+    dtype, or a Python number."""
+    if isinstance(ref, np.ndarray):
+        return arr.astype(ref.dtype)
     if isinstance(ref, torch.Tensor):
         if dtype == "bfloat16":
             t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
@@ -138,8 +141,9 @@ def _leaf_like(arr: np.ndarray, dtype: str, ref, device):
 
 
 def restore(ckpt_dir, step: int, like, *, device=None):
-    """Restore into the structure of ``like`` (a tree of tensors and Python
-    numbers; its leaves give each restored leaf its kind and dtype).
+    """Restore into the structure of ``like`` (a tree of tensors, numpy
+    arrays and Python numbers; its leaves give each restored leaf its kind
+    and dtype).
     ``device``: where tensor leaves go (default: each ``like`` leaf's
     device). Returns (tree, metadata)."""
     path = pathlib.Path(ckpt_dir) / f"step_{step:09d}"

@@ -166,29 +166,38 @@ class StreamingCurvature:
 class CurvatureCache:
     """Stateful wrapper: ``solve`` replaces the held state — the amortized
     drop-in for a per-step ``chol_solve`` (benchmarks, interactive use).
-    ``registry`` (curvature metrics) comes with the observability slice;
-    until then a registry raises ``NotImplementedError``."""
+    ``registry`` (``repro_torch.obs.MetricsRegistry``): the reference's
+    curvature series after every solve — ``curvature.cache_hits`` and
+    ``curvature.refreshes`` counters, ``curvature.factor_age`` and
+    ``curvature.last_drift_residual`` gauges — and the audit's
+    ``curvature.condest`` / ``curvature.factor_residual``; all host
+    numbers of the state, no device read."""
 
     def __init__(self, policy: StreamingCurvature, *, registry=None):
-        if registry is not None:
-            raise NotImplementedError(
-                "CurvatureCache(registry=) needs the port's metrics "
-                "registry, which comes with the observability slice")
         self.policy = policy
         self.state = policy.init()
-        self.registry = None
+        self.registry = registry
 
     def solve(self, S, v, damping, *, damping_state=None):
         x, self.state = self.policy.solve(S, v, damping, self.state,
                                           damping_state=damping_state)
+        if self.registry is not None:
+            st = self.state
+            self.registry.counter("curvature.cache_hits").value = \
+                st.stats.hits
+            self.registry.counter("curvature.refreshes").value = \
+                st.stats.refreshes
+            self.registry.gauge("curvature.factor_age").set(st.age)
+            self.registry.gauge("curvature.last_drift_residual").set(
+                st.stats.last_residual)
         return x
 
     def audit(self, S, damping, *, iters: int = 2, probes: int = 2,
               step: int = 0) -> dict:
         """Audit of the cached W at λ = ``damping``: the Hager/Higham
         condition estimate and a Hutchinson residual probe of the freshly
-        damped factor (``repro_torch.curvature.audit``), read to the host;
-        priced like one extra solve."""
+        damped factor (``repro_torch.curvature.audit``), read to the host
+        and mirrored into the registry; priced like one extra solve."""
         from repro_torch.curvature.audit import audit_factor
         S = materialize(S)
         lam = real_scalar(damping, torch.float32)
@@ -196,8 +205,13 @@ class CurvatureCache:
                              jitter=self.policy.jitter)
         res = audit_factor(fac.W, fac.L, lam, iters=iters, probes=probes,
                            step=step)
-        return {"condest": float(res.condest),
-                "residual": float(res.residual)}
+        out = {"condest": float(res.condest),
+               "residual": float(res.residual)}
+        if self.registry is not None:
+            self.registry.gauge("curvature.condest").set(out["condest"])
+            self.registry.gauge(
+                "curvature.factor_residual").set(out["residual"])
+        return out
 
     @property
     def stats(self) -> CurvatureStats:

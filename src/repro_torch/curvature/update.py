@@ -188,12 +188,19 @@ def signed_split(U, core) -> Tuple[torch.Tensor, torch.Tensor]:
     The eigendecomposition runs on the host: the core is tiny, and a
     device ``eigh`` would wait on the device for its error check anyway.
     A core already on the CPU costs no transfer (``_fold_window`` moves it
-    there together with its finiteness flag, in one read)."""
+    there together with its finiteness flag, in one read). It runs in
+    float64: a fold that retires rows dominating the Gram gives a core
+    whose eigenvalues span the square of its condition, and fp32 loses
+    the small ones — enough to flip the sign of the downdate's margin
+    (rows ×1e3 at λ = 1e-8, n = 8, where the float64 margin is positive
+    and below 1e-6: an fp32 split made it negative)."""
     U = _promote(U)
     core = _promote(core).to(U.dtype).cpu()
     core = (core + core.mH) / 2
-    lam, Q = torch.linalg.eigh(core)
-    lam, Q = lam.to(U.device), Q.to(U.device)
+    wide = torch.complex128 if core.is_complex() else torch.float64
+    lam, Q = torch.linalg.eigh(core.to(wide))
+    lam = lam.to(U.real.dtype).to(U.device)
+    Q = Q.to(U.dtype).to(U.device)
     V = U @ Q
     X = V * torch.sqrt(torch.clamp_min(lam, 0.0))
     Y = V * torch.sqrt(torch.clamp_min(-lam, 0.0))

@@ -11,11 +11,12 @@ ngd`` is the paper's damped natural gradient (Algorithm 1) end to end.
 Entry points run on CUDA unless given ``device="cpu"`` / ``--device
 cpu``, where the kernels' plain versions run.
 
-``build_server`` is the eager replicated server of the reference. Its
-other flavours raise ``NotImplementedError`` naming the queue that ports
-them (``repro_torch.roadmap``): ``layout``/``async_`` (the sharded tier),
-the tenant options and the observability hooks and audit; so do
-``train_main``'s ``--mesh-shape`` away from ``1,1`` and ``build_fleet``.
+``build_server`` is the eager replicated server of the reference, with
+its observability hooks and audit. Its other flavours raise
+``NotImplementedError`` naming the queue that ports them
+(``repro_torch.roadmap``): ``layout``/``async_`` (the sharded tier) and
+the tenant options; so does ``train_main``'s ``--mesh-shape`` away from
+``1,1``.
 """
 from __future__ import annotations
 
@@ -119,7 +120,7 @@ def build_trainer(cfg, *, optimizer_name: str, lr: float, damping: float,
         tstep = T.make_train_step(api, opt)
 
     def init_state():
-        p = api.init_params(torch.Generator(device=dev).manual_seed(seed)) \
+        p = api.init_params(torch.Generator().manual_seed(seed), dev) \
             if params is None else _place_params(params, dev)
         return {"params": p, "opt": opt.init(p)}
 
@@ -202,7 +203,7 @@ def _build_serve_front(cfg, *, window: int, seq: int, score_chunk=None,
     api = get_api(cfg)
     data = SyntheticLM(cfg, batch=window, seq=seq, seed=seed)
     if params is None:
-        params = api.init_params(torch.Generator(device=dev).manual_seed(seed))
+        params = api.init_params(torch.Generator().manual_seed(seed), dev)
     else:
         params = _place_params(params, dev)
     _, unravel = flatten_like(params)
@@ -222,13 +223,6 @@ _LATER = {
     "async_": "sharded",
     "tenant_rank": "tenants",
     "tenant_budget_mb": "tenants",
-    "audit_every": "observability",
-    "registry": "observability",
-    "tracer": "observability",
-    "profile": "observability",
-    "health": "observability",
-    "recorder": "observability",
-    "record_dir": "observability",
 }
 
 
@@ -238,7 +232,7 @@ def build_server(cfg, *, window: int, seq: int, damping: float = 1e-3,
                  jitter: float = 0.0, score_chunk=None, policy: str = "cached",
                  layout=None, async_: bool = False, oversize: str = "split",
                  window_dtype=None, tenant_rank=None, tenant_budget_mb=None,
-                 seed: int = 0, audit_every: int = 0,
+                 seed: int = 0, audit_every: int = 0, audit_probes: int = 2,
                  registry=None, tracer=None, profile=None, health=None,
                  recorder=None, record_dir=None, params=None, device=None):
     """Config → model → resident curvature window → eager ``SolveServer``.
@@ -254,31 +248,42 @@ def build_server(cfg, *, window: int, seq: int, damping: float = 1e-3,
     from ``seed``. ``device``: CUDA by default; ``"cpu"`` runs the plain
     versions. ``window_dtype`` (e.g. "bfloat16"): low-precision window
     storage, every S pass still accumulating fp32.
+
+    ``registry`` / ``tracer`` / ``profile`` / ``health`` / ``recorder``
+    (``repro_torch.obs``) thread the observability fabric through the
+    server; ``audit_every`` runs the factor audit (``audit_probes``
+    probes) every that many maintenance passes (0: off; it needs a
+    registry); ``record_dir`` is the shorthand that builds a
+    ``FlightRecorder`` rooted there.
     """
     from repro_torch.serve import (OnlineAdaptation, SolveServer,
                                    TokenBudgetBatcher, init_serve_state)
 
     given = {"layout": layout, "async_": async_, "tenant_rank": tenant_rank,
-             "tenant_budget_mb": tenant_budget_mb, "audit_every": audit_every,
-             "registry": registry, "tracer": tracer, "profile": profile,
-             "health": health, "recorder": recorder, "record_dir": record_dir}
+             "tenant_budget_mb": tenant_budget_mb}
     for name, value in given.items():
-        if value not in (None, False, 0):
+        if value not in (None, False):
             raise NotImplementedError(
                 f"build_server({name}=...) comes with {queue(_LATER[name])}")
     handles, S0 = _build_serve_front(cfg, window=window, seq=seq,
                                      score_chunk=score_chunk, seed=seed,
                                      params=params, device=device)
+    if recorder is None and record_dir is not None:
+        from repro_torch.obs import FlightRecorder
+        recorder = FlightRecorder(str(record_dir))
     adaptation = OnlineAdaptation(refresh_every=refresh_every,
                                   drift_tol=drift_tol, drift_frac=drift_frac,
-                                  jitter=jitter)
+                                  jitter=jitter, audit_every=audit_every,
+                                  audit_probes=audit_probes)
     batcher = TokenBudgetBatcher(max_tokens=max_tokens,
                                  max_requests=max_requests, oversize=oversize)
     state = init_serve_state(S0, damping, jitter=jitter,
                              window_dtype=window_dtype)
     del S0
     server = SolveServer(state, batcher=batcher, adaptation=adaptation,
-                         policy=policy, jitter=jitter)
+                         policy=policy, jitter=jitter, registry=registry,
+                         tracer=tracer, profile=profile, health=health,
+                         recorder=recorder)
     return server, handles
 
 

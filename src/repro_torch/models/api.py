@@ -25,7 +25,7 @@ __all__ = ["ModelAPI", "get_api"]
 @dataclasses.dataclass(frozen=True)
 class ModelAPI:
     cfg: ModelConfig
-    init_params: Callable           # init_params(generator) -> params
+    init_params: Callable           # init_params(cpu_gen, device) -> params
     loss: Callable                  # loss(params, batch) -> (scalar, metrics)
     prefill: Callable               # prefill(params, batch) -> (logits, cache, idx)
     decode_step: Callable           # decode(params, cache, idx, tokens) -> (logits, cache)
@@ -45,8 +45,8 @@ def get_api(cfg: ModelConfig) -> ModelAPI:
             f"{cfg.name}: {later[0]} needs a block a later slice of the "
             f"model zoo ports ({queue('models')})")
 
-    def init_params(gen: torch.Generator):
-        return lm.init_params(gen, cfg)
+    def init_params(gen: torch.Generator, device=None):
+        return lm.init_params(gen, cfg, device)
 
     def loss(params, batch):
         return lm.lm_loss(params, cfg, batch)

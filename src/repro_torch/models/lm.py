@@ -24,10 +24,12 @@ blockwise attention of ``models.layers``, as the reference does
 everywhere. The rule reads shapes, dtypes and the config only, so it
 routes a CPU run as it routes the card's.
 
-Initialization draws from an explicit ``torch.Generator`` with the
-reference's shapes, scales and dtypes (not its bits: ``jax.random`` and
-torch draw different numbers). Mamba, MoE and cross-attention slots come
-with later slices and raise ``NotImplementedError``.
+Initialization draws from an explicit CPU ``torch.Generator`` and moves
+each draw to the device asked for, so one seed gives the same weights on
+every device. Shapes, scales and dtypes are the reference's, not its
+bits (``jax.random`` and torch draw different numbers). Mamba, MoE and
+cross-attention slots come with later slices and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -60,8 +62,10 @@ def _later(what: str):
 # init
 # ---------------------------------------------------------------------------
 
-def _randn(gen: torch.Generator, shape) -> torch.Tensor:
-    return torch.randn(shape, generator=gen, dtype=F32, device=gen.device)
+def _randn(gen: torch.Generator, shape, device) -> torch.Tensor:
+    """F32 normal draws from the CPU generator ``gen``, moved to
+    ``device``: one seed gives the same weights on every device."""
+    return torch.randn(shape, generator=gen, dtype=F32).to(device)
 
 
 def _norm_p(cfg, d, device):
@@ -77,76 +81,84 @@ def _apply_norm(x, p, cfg):
     return L.rms_norm(x, p["g"], eps=cfg.norm_eps)
 
 
-def _dense(gen, shape, dtype, scale=None):
+def _dense(gen, shape, dtype, device, scale=None):
     scale = scale if scale is not None else shape[0] ** -0.5
-    return (_randn(gen, shape) * scale).to(dtype)
+    return (_randn(gen, shape, device) * scale).to(dtype)
 
 
-def _init_attn(gen, cfg, d):
+def _init_attn(gen, cfg, d, device):
     H, KH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    pd = cfg.param_dtype
     p = {
-        "norm": _norm_p(cfg, d, gen.device),
-        "wq": _dense(gen, (d, H * hd), cfg.param_dtype),
-        "wk": _dense(gen, (d, KH * hd), cfg.param_dtype),
-        "wv": _dense(gen, (d, KH * hd), cfg.param_dtype),
-        "wo": _dense(gen, (H * hd, d), cfg.param_dtype),
+        "norm": _norm_p(cfg, d, device),
+        "wq": _dense(gen, (d, H * hd), pd, device),
+        "wk": _dense(gen, (d, KH * hd), pd, device),
+        "wv": _dense(gen, (d, KH * hd), pd, device),
+        "wo": _dense(gen, (H * hd, d), pd, device),
     }
     if cfg.use_post_norm:
-        p["post_norm"] = _norm_p(cfg, d, gen.device)
+        p["post_norm"] = _norm_p(cfg, d, device)
     return p
 
 
-def _init_ffn(gen, cfg, d, *, moe: bool):
+def _init_ffn(gen, cfg, d, device, *, moe: bool):
     if moe:
         raise _later("the MoE FFN (layers.moe_block)")
+    pd = cfg.param_dtype
     if cfg.mlp_type == "gelu":
-        p = {"w_up": _dense(gen, (d, cfg.d_ff), cfg.param_dtype),
-             "w_down": _dense(gen, (cfg.d_ff, d), cfg.param_dtype)}
+        p = {"w_up": _dense(gen, (d, cfg.d_ff), pd, device),
+             "w_down": _dense(gen, (cfg.d_ff, d), pd, device)}
     else:
-        p = {"w_gate": _dense(gen, (d, cfg.d_ff), cfg.param_dtype),
-             "w_up": _dense(gen, (d, cfg.d_ff), cfg.param_dtype),
-             "w_down": _dense(gen, (cfg.d_ff, d), cfg.param_dtype)}
-    p["ffn_norm"] = _norm_p(cfg, d, gen.device)
+        p = {"w_gate": _dense(gen, (d, cfg.d_ff), pd, device),
+             "w_up": _dense(gen, (d, cfg.d_ff), pd, device),
+             "w_down": _dense(gen, (cfg.d_ff, d), pd, device)}
+    p["ffn_norm"] = _norm_p(cfg, d, device)
     if cfg.use_post_norm:
-        p["ffn_post_norm"] = _norm_p(cfg, d, gen.device)
+        p["ffn_post_norm"] = _norm_p(cfg, d, device)
     return p
 
 
-def init_slot(gen: torch.Generator, slot: BlockSlot, cfg: ModelConfig, d):
+def init_slot(gen: torch.Generator, slot: BlockSlot, cfg: ModelConfig, d,
+              device=None):
     """Params for one slot position (un-stacked)."""
     if slot.kind == "mamba":
         raise _later("the Mamba2 block (layers.mamba_block)")
     if slot.cross_attn:
         raise _later("cross-attention (models/encdec.py)")
-    p = _init_attn(gen, cfg, d)
-    p.update(_init_ffn(gen, cfg, d, moe=slot.moe))
+    device = torch.device("cpu" if device is None else device)
+    p = _init_attn(gen, cfg, d, device)
+    p.update(_init_ffn(gen, cfg, d, device, moe=slot.moe))
     return p
 
 
-def init_blocks(gen: torch.Generator, cfg: ModelConfig, d=None):
+def init_blocks(gen: torch.Generator, cfg: ModelConfig, d=None, device=None):
     """List of per-slot trees, each leaf stacked over cfg.repeats."""
     d = d or cfg.d_model
     blocks = []
     for slot in cfg.slots:
-        rows = [init_slot(gen, slot, cfg, d) for _ in range(cfg.repeats)]
+        rows = [init_slot(gen, slot, cfg, d, device)
+                for _ in range(cfg.repeats)]
         blocks.append(tree_map(lambda *xs: torch.stack(xs), *rows))
     return blocks
 
 
-def init_params(gen: torch.Generator, cfg: ModelConfig):
-    """The parameter tree, drawn from ``gen`` on ``gen.device``."""
+def init_params(gen: torch.Generator, cfg: ModelConfig, device=None):
+    """The parameter tree, drawn from the CPU generator ``gen`` and placed
+    on ``device`` (the CPU by default); each draw is scaled, cast and
+    stacked there."""
+    device = torch.device("cpu" if device is None else device)
     params = {
-        "embed": (_randn(gen, (cfg.padded_vocab, cfg.d_model)) * 0.02
-                  ).to(cfg.param_dtype),
-        "final_norm": _norm_p(cfg, cfg.d_model, gen.device),
-        "blocks": init_blocks(gen, cfg),
+        "embed": (_randn(gen, (cfg.padded_vocab, cfg.d_model), device)
+                  * 0.02).to(cfg.param_dtype),
+        "final_norm": _norm_p(cfg, cfg.d_model, device),
+        "blocks": init_blocks(gen, cfg, device=device),
     }
     if not cfg.tie_embeddings:
         params["head"] = _dense(gen, (cfg.d_model, cfg.padded_vocab),
-                                cfg.param_dtype)
+                                cfg.param_dtype, device)
     if cfg.pos_embed == "learned":
         params["pos_embed"] = (_randn(gen, (cfg.max_target_positions or 2048,
-                                            cfg.d_model)) * 0.02
+                                            cfg.d_model), device) * 0.02
                                ).to(cfg.param_dtype)
     return params
 

@@ -7,8 +7,6 @@ from __future__ import annotations
 __all__ = ["QUEUES", "queue"]
 
 QUEUES = {
-    "checkpoints": ("A3", "the journal and serve-state checkpoints"),
-    "observability": ("A4", "observability"),
     "tenants": ("A5", "tenants"),
     "models": ("A6", "the other model families"),
     "sharded": ("A7", "the sharded tier"),

@@ -16,9 +16,29 @@ Staleness is bounded like the training-side cache: ``maybe_refresh``
 (between microbatches) refactorizes when the factor's age reaches
 ``refresh_every`` microbatches or the last monitored residual exceeds the
 drift threshold (static ``drift_tol``, else ``auto_drift_tol``).
+
+Folds are also events: with a ``journal`` attached (or an ``on_fold``
+callback) every applied fold is emitted as a ``FoldEvent`` — the rows as
+stored plus the FIFO slots they landed in — and every refresh too;
+``fold(..., slots=...)`` replays such an event, verifying the slots
+against the local cursor. Replaying the same events onto the same initial
+state on the same device reproduces the factor bit for bit
+(``FoldJournal.replay``).
+
+With a ``repro_torch.obs`` registry attached the adaptation reports the
+reference's series: ``curvature.folds``/``fold_rows``/``refreshes``/
+``refresh_<reason>`` counters, ``window.bytes.<dtype>`` gauges, each
+fold's downdate margin (``curvature.downdate_margin``,
+``curvature.downdate_clamped``), drained at the maintenance boundary, and
+every ``audit_every`` boundaries the factor audit (``curvature.condest``,
+``curvature.factor_residual``); a ``health`` monitor is evaluated there
+and gets an event for each fold it rejects for NaN/Inf rows
+(``serve.fold.rejected_nonfinite``). Every number read to the host is
+read at that boundary, as in the reference.
 """
 from __future__ import annotations
 
+import time
 from typing import Optional, Tuple
 
 import torch
@@ -116,23 +136,43 @@ def _fold_window(S, W, L, slot: int, rows, *, with_aux: bool = False):
 class OnlineAdaptation:
     """Bounded-staleness maintenance policy for the serving window.
 
-    ``track_margins``: compute each fold's downdate breakdown margin and
-    drain it at ``maybe_refresh`` into ``downdate_margin`` (worst margin of
-    the drained folds) and ``downdate_clamped`` (count of clamped
-    downdates) — the reference does this when a metrics registry is
-    attached; the registry comes with a later slice.
+    Thresholds mirror ``StreamingCurvature`` (age period + drift bound,
+    the static ``drift_tol`` overriding the ``drift_frac`` autotune);
+    ``from_policy`` copies them from a training-side policy.
+
+    ``journal`` (``serve.journal.FoldJournal``) records every applied fold
+    and refresh; ``on_fold(event)`` fires per fold. ``registry`` and
+    ``health`` (``repro_torch.obs``) receive the series and events of the
+    module docstring; ``audit_every`` (maintenance boundaries, 0: off),
+    ``audit_probes`` and ``condest_iters`` set the audit, which, as in the
+    reference, runs only with a registry. ``track_margins`` drains the
+    downdate margins without a registry. Host-side mirrors, kept with or
+    without a registry: ``rejected_nonfinite`` (rejected folds),
+    ``downdate_margin`` (worst margin of the last drain) and
+    ``downdate_clamped`` (clamped downdates).
     """
 
     def __init__(self, *, refresh_every: int = 64,
                  drift_tol: Optional[float] = None,
                  drift_frac: Optional[float] = 0.25, jitter: float = 0.0,
-                 track_margins: bool = False):
+                 journal=None, on_fold=None, registry=None, health=None,
+                 audit_every: int = 0, audit_probes: int = 2,
+                 condest_iters: int = 2, track_margins: bool = False):
         if refresh_every < 1:
             raise ValueError("refresh_every must be >= 1")
         self.refresh_every = int(refresh_every)
         self.drift_tol = None if drift_tol is None else float(drift_tol)
         self.drift_frac = None if drift_frac is None else float(drift_frac)
         self.jitter = float(jitter)
+        self.journal = journal
+        self.on_fold = on_fold
+        self.registry = registry
+        self.health = health
+        self.audit_every = int(audit_every)
+        self.audit_probes = int(audit_probes)
+        self.condest_iters = int(condest_iters)
+        self._audit_tick = 0
+        self._audit_step = 0
         self.track_margins = bool(track_margins)
         self.rejected_nonfinite = 0
         self.downdate_margin: Optional[float] = None
@@ -150,6 +190,10 @@ class OnlineAdaptation:
                    drift_frac=getattr(policy, "drift_frac", None),
                    jitter=policy.jitter if jitter is None else jitter)
 
+    @property
+    def _tracks_margins(self) -> bool:
+        return self.track_margins or self.registry is not None
+
     def effective_drift_tol(self, damping_state=None) -> Optional[float]:
         if self.drift_tol is not None:
             return self.drift_tol
@@ -157,15 +201,17 @@ class OnlineAdaptation:
             return float(auto_drift_tol(damping_state, frac=self.drift_frac))
         return None
 
-    def fold(self, state: ServeState, rows, *, slots=None) -> ServeState:
+    def fold(self, state: ServeState, rows, *, slots=None,
+             record: bool = True) -> ServeState:
         """Fold one request's score rows into the window (FIFO replace).
 
         ``rows``: (k, m) — or per-block (k, m_b) pieces for a blocked
         window — with k ≤ n. ``slots``: optional FIFO slot indices of a
         replayed fold, verified against the local cursor (raises on
         divergence), so a replayer can only apply folds in order. Rows
-        holding a NaN/Inf are rejected: the state comes back unchanged and
-        ``rejected_nonfinite`` counts it."""
+        holding a NaN/Inf are rejected: the state comes back unchanged.
+        ``record=False`` keeps the fold out of the journal and ``on_fold``
+        (the replayer's own folds)."""
         row_blocks = tuple(rows) if isinstance(rows, (tuple, list)) \
             else (rows,)
         k = int(row_blocks[0].shape[0])
@@ -176,19 +222,21 @@ class OnlineAdaptation:
             raise ValueError(
                 f"{len(row_blocks)} row blocks for a "
                 f"{len(state.S.blocks)}-block window")
+        expect = tuple((state.slot + i) % n for i in range(k))
         if slots is not None:
-            expect = tuple((state.slot + i) % n for i in range(k))
             got = tuple(int(s) for s in slots)
             if got != expect:
                 raise ValueError(
                     f"fold replay out of order: event slots {got} vs local "
                     f"FIFO cursor {expect} (apply events in journal order)")
+        # the one dtype-aware cast + pad point: the journal, the cross
+        # pass and the FIFO write all see the stored values
         rows_in = pad_to_window_cols(state.S, rows, axis=1)
         out = _fold_window(state.S, state.W, state.L, state.slot, rows_in,
-                           with_aux=self.track_margins)
+                           with_aux=self._tracks_margins)
         if out is None:
             # one NaN/Inf row would poison W, L and the window at once
-            self.rejected_nonfinite += 1
+            self._reject_nonfinite()
             return state
         Sp, Wp, Lp, slot, aux = out
         if aux is not None and len(self._pending_aux) < 1024:
@@ -198,32 +246,92 @@ class OnlineAdaptation:
                 event.record()
             self._pending_aux.append((aux, event))
         stats = state.stats._replace(adapted=state.stats.adapted + k)
+        if self.registry is not None:
+            self.registry.counter("curvature.folds").inc()
+            self.registry.counter("curvature.fold_rows").inc(k)
+            self._window_gauges(Sp)
+        if record and (self.journal is not None or self.on_fold is not None):
+            if self.journal is not None:
+                ev = self.journal.append_fold(expect, rows_in)
+            else:
+                from repro_torch.serve.journal import FoldEvent
+                ev = FoldEvent(seq=-1, kind="fold", slots=expect,
+                               rows=rows_in)
+            if self.on_fold is not None:
+                self.on_fold(ev)
         return state._replace(S=Sp, W=Wp, L=Lp, slot=slot, stats=stats)
 
+    def _reject_nonfinite(self) -> None:
+        self.rejected_nonfinite += 1
+        if self.registry is not None:
+            self.registry.counter("serve.fold.rejected_nonfinite").inc()
+        if self.health is not None:
+            from repro_torch.obs.health import HealthEvent
+            self.health.record_event(HealthEvent(
+                ts=time.time(), severity="degraded", rule="nonfinite_folds",
+                series="serve.fold.rejected_nonfinite", value=1.0,
+                bound=0.0,
+                recommendation="fold rows with NaN/Inf were rejected: "
+                               "check the score producer upstream"))
+
+    def _window_gauges(self, S) -> None:
+        """Window storage by dtype — shapes and dtypes only, no device
+        read."""
+        by_dtype: dict = {}
+        for b in (S.blocks if is_blocked(S) else (S,)):
+            name = str(b.dtype).removeprefix("torch.")
+            by_dtype[name] = by_dtype.get(name, 0) \
+                + b.numel() * b.element_size()
+        for name, nb in by_dtype.items():
+            self.registry.gauge(f"window.bytes.{name}").set(nb)
+
     def maybe_refresh(self, state: ServeState, *, damping_state=None,
-                      force: bool = False) -> Tuple[ServeState, bool]:
+                      force: bool = False, record: bool = True
+                      ) -> Tuple[ServeState, bool]:
         """Full W refactorization when the staleness bound is hit — called
         between microbatches, never on the request path. Returns
-        (state', refreshed)."""
+        (state', refreshed). The maintenance boundary also drains the
+        downdate margins, ticks the audit and evaluates the health rules."""
         tol = self.effective_drift_tol(damping_state)
         r = float(state.stats.last_residual)
         age_due = state.age >= self.refresh_every
         drift_due = tol is not None and r >= 0.0 and r > tol
         refreshed = force or age_due or drift_due
         if refreshed:
+            if record and self.journal is not None:
+                self.journal.append_refresh()
             fac = chol_factorize(state.S, state.lam0, mode=serve_mode(state),
                                  jitter=self.jitter)
             stats = state.stats._replace(refreshes=state.stats.refreshes + 1,
                                          last_residual=-1.0)
+            if self.registry is not None:
+                self.registry.counter("curvature.refreshes").inc()
+                reason = "force" if force else ("age" if age_due else "drift")
+                self.registry.counter(f"curvature.refresh_{reason}").inc()
             state = state._replace(W=fac.W, L=fac.L, age=0, stats=stats)
-        self._drain_margins()
+        self._observe_health(state)
         return state, refreshed
+
+    def _observe_health(self, state: ServeState) -> None:
+        """The maintenance boundary's reads: the pending downdate margins,
+        the audit every ``audit_every`` boundaries, then the health rules
+        (the last two only with a registry, as in the reference)."""
+        self._drain_margins()
+        if self.registry is None:
+            return
+        if self.audit_every > 0:
+            self._audit_tick += 1
+            if self._audit_tick >= self.audit_every:
+                self._audit_tick = 0
+                self.audit(state)
+        if self.health is not None:
+            self.health.evaluate()
 
     def _drain_margins(self) -> None:
         """Read the margins of folds whose device work already finished
         (blocking would serialize the fold chain against the next
         microbatch); a backlog past 64 drains in full."""
-        if not self.track_margins:
+        if not self._tracks_margins:
             self._pending_aux.clear()
             return
         pending = self._pending_aux
@@ -235,7 +343,34 @@ class OnlineAdaptation:
                     break
         done, self._pending_aux = pending[:split], pending[split:]
         margins = [float(a.margin) for a, _ in done]
+        clamped = sum(bool(a.clamped) for a, _ in done)
         vals = [v for v in margins if v == v]          # NaN-proof min
         if vals:
             self.downdate_margin = min(vals)
-        self.downdate_clamped += sum(bool(a.clamped) for a, _ in done)
+        self.downdate_clamped += clamped
+        if self.registry is not None:
+            if vals:
+                self.registry.gauge(
+                    "curvature.downdate_margin").set(min(vals))
+            if clamped:
+                self.registry.counter(
+                    "curvature.downdate_clamped").inc(clamped)
+
+    def audit(self, state: ServeState) -> dict:
+        """One factor audit: the Hager/Higham 1-norm condition estimate of
+        W + λĨ and a Hutchinson probe of the factor residual, against the
+        resident W and L (``repro_torch.curvature.audit``), read to the
+        host and mirrored into ``curvature.condest`` /
+        ``curvature.factor_residual``."""
+        from repro_torch.curvature.audit import audit_factor
+        self._audit_step += 1
+        res = audit_factor(state.W, state.L, state.lam0,
+                           iters=self.condest_iters,
+                           probes=self.audit_probes, step=self._audit_step)
+        out = {"condest": float(res.condest),
+               "residual": float(res.residual)}
+        if self.registry is not None:
+            self.registry.gauge("curvature.condest").set(out["condest"])
+            self.registry.gauge(
+                "curvature.factor_residual").set(out["residual"])
+        return out

@@ -39,6 +39,7 @@ class SolveRequest:
     payload: Any = None
     t_submit: float = 0.0       # stamped by the server for latency stats
     tenant: Optional[str] = None
+    trace: Optional[str] = None   # obs trace id of the request's spans
 
 
 class Microbatch(NamedTuple):
@@ -107,7 +108,8 @@ class TokenBudgetBatcher:
 
     def submit(self, v, *, damping: float, tokens: int = 1, rows=None,
                payload=None, uid: Optional[int] = None,
-               tenant: Optional[str] = None) -> SolveRequest:
+               tenant: Optional[str] = None,
+               trace: Optional[str] = None) -> SolveRequest:
         """Enqueue one request; returns the (uid-stamped) request object."""
         tokens = max(int(tokens), 1)
         if tokens > self.max_tokens and self.oversize == "reject":
@@ -118,7 +120,8 @@ class TokenBudgetBatcher:
         req = SolveRequest(
             uid=next(self._uid) if uid is None else uid, v=v,
             damping=float(damping), tokens=tokens, rows=rows, payload=payload,
-            tenant=None if tenant is None else str(tenant))
+            tenant=None if tenant is None else str(tenant),
+            trace=None if trace is None else str(trace))
         self._queue.append(req)
         return req
 

@@ -21,26 +21,41 @@ request ``serve_trace``
 4. greedy-decodes the response: prefill (the flash-attention kernel on
    the card) and one-token decode steps.
 
-It prints p50/p99 solve latency, requests/sec and the window counters at
-exit. ``--smoke`` (the default) serves the architecture's reduced config;
-``--full`` its published widths, ``--n-layers`` cuts the depth. The
-fleet, the async and sharded servers, tenants, observability, the audit
-and checkpoints come with later slices (``repro_torch.roadmap``) and raise
-``NotImplementedError`` when asked for.
+``ServeState`` and the params checkpoint every ``--ckpt-every`` rounds
+and at exit into ``--ckpt-dir`` (``repro_torch.checkpoint``, the
+reference's layout), the factor audit runs every ``--audit-every``
+maintenance passes, and the health monitor's verdict prints at exit,
+after p50/p99 solve latency, requests/sec and the window counters. The
+observability flags are the reference's: ``--metrics-port`` /
+``--health-port`` (HTTP endpoints, self-scraped at exit),
+``--metrics-snapshot``, ``--trace-out`` (a Chrome trace),
+``--profile-dir`` (``torch.profiler``) and ``--record-dir`` (the flight
+recorder). ``--smoke`` (the default) serves the architecture's reduced
+config; ``--full`` its published widths, ``--n-layers`` cuts the depth.
+The fleet, the async and sharded servers and tenants come with later
+slices (``repro_torch.roadmap``) and raise ``NotImplementedError`` when
+asked for.
 """
 from __future__ import annotations
 
 import argparse
+import json
 import time
+import urllib.request
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
 from repro_torch import configs
+from repro_torch.checkpoint import checkpoint as ckpt
 from repro_torch.core.damping import LevenbergMarquardtDamping
 from repro_torch.launch.trainer import build_server
+from repro_torch.obs import (FlightRecorder, HealthMonitor, MetricsRegistry,
+                             ProfileHooks, Tracer, start_metrics_server,
+                             write_snapshot)
 from repro_torch.roadmap import queue
+from repro_torch.serve.state import serve_state_tree
 
 __all__ = ["serve_main", "serve_trace"]
 
@@ -55,7 +70,8 @@ def _sync(device: torch.device) -> float:
 def serve_trace(server, h, *, requests: int, window: int, adapt_examples: int,
                 seq: int, decode_tokens: int, damping: float, lr: float,
                 burst: int, seed: int = 0, keep_logits: bool = False,
-                on_result: Optional[Callable] = None, log=print) -> dict:
+                on_result: Optional[Callable] = None,
+                on_round: Optional[Callable] = None, log=print) -> dict:
     """Serve ``requests`` synthetic requests; the per-request loop of the
     reference's eager ``serve_main``.
 
@@ -68,7 +84,9 @@ def serve_trace(server, h, *, requests: int, window: int, adapt_examples: int,
     ``decode_ms`` (prefill + decode), each ended by a device sync; with
     ``keep_logits`` also ``logits``, the (decode_tokens, V) fp32 logits
     of the greedy steps, on the host. ``on_result(record, result)`` sees
-    each solve result (``result.x``) before the next request is served.
+    each solve result (``result.x``) before the next request is served;
+    ``on_round(rounds)`` runs after each flush that served requests (the
+    CLI's checkpoint cadence).
     """
     dev = h.device
     lm_damping = LevenbergMarquardtDamping(damping)
@@ -130,6 +148,8 @@ def serve_trace(server, h, *, requests: int, window: int, adapt_examples: int,
             records.append(rec)
         if results:
             rounds += 1
+            if on_round is not None:
+                on_round(rounds)
     return {"records": records, "damping_state": dstate, "rounds": rounds}
 
 
@@ -190,18 +210,32 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--tenant-budget-mb", type=float, default=None,
                     help="resident tenant byte budget in MiB (--tenants)")
     ap.add_argument("--ckpt-dir", default="artifacts/serve_ckpt")
-    ap.add_argument("--ckpt-every", type=int, default=0,
-                    help="checkpoint cadence in flush rounds (0: off; "
-                         f"checkpoints come with {queue('checkpoints')})")
-    ap.add_argument("--metrics-port", type=int, default=None)
-    ap.add_argument("--metrics-snapshot", default=None)
-    ap.add_argument("--trace-out", default=None)
-    ap.add_argument("--profile-dir", default=None)
-    ap.add_argument("--audit-every", type=int, default=0, metavar="K",
-                    help="0: off (the audit hook comes with "
-                         f"{queue('observability')})")
-    ap.add_argument("--health-port", type=int, default=None)
-    ap.add_argument("--record-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=8,
+                    help="checkpoint cadence in flush rounds (0: off)")
+    ap.add_argument("--metrics-port", type=int, default=None, metavar="PORT",
+                    help="serve live metrics over HTTP on this port "
+                         "(/metrics Prometheus text, /metrics.json raw "
+                         "snapshot, /health; 0: ephemeral port)")
+    ap.add_argument("--metrics-snapshot", default=None, metavar="PATH",
+                    help="write the metrics snapshot JSON here at "
+                         "checkpoint cadence and at exit")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="trace every request's spans and export a "
+                         "Chrome-trace JSON here at exit")
+    ap.add_argument("--profile-dir", default=None, metavar="DIR",
+                    help="capture a torch.profiler trace of the serving "
+                         "loop into DIR")
+    ap.add_argument("--audit-every", type=int, default=4, metavar="K",
+                    help="run the factor audit (condition estimate + "
+                         "Hutchinson residual probe) every K maintenance "
+                         "passes (0: off)")
+    ap.add_argument("--health-port", type=int, default=None, metavar="PORT",
+                    help="bind an extra HTTP endpoint serving the health "
+                         "report at /health (0: ephemeral port)")
+    ap.add_argument("--record-dir", default=None, metavar="DIR",
+                    help="run the flight recorder: incident bundles under "
+                         "DIR on health-verdict escalations (replay with "
+                         "python -m repro_torch.obs.forensics)")
     return ap
 
 
@@ -217,17 +251,6 @@ def _later_flags(args) -> dict:
         "--tenants": (args.tenants > 0, "tenants"),
         "--tenant-rank": (args.tenant_rank != 4, "tenants"),
         "--tenant-budget-mb": (args.tenant_budget_mb is not None, "tenants"),
-        "--ckpt-every": (args.ckpt_every > 0, "checkpoints"),
-        "--ckpt-dir": (args.ckpt_dir != "artifacts/serve_ckpt",
-                       "checkpoints"),
-        "--metrics-port": (args.metrics_port is not None, "observability"),
-        "--metrics-snapshot": (args.metrics_snapshot is not None,
-                               "observability"),
-        "--trace-out": (args.trace_out is not None, "observability"),
-        "--profile-dir": (args.profile_dir is not None, "observability"),
-        "--audit-every": (args.audit_every > 0, "observability"),
-        "--health-port": (args.health_port is not None, "observability"),
-        "--record-dir": (args.record_dir is not None, "observability"),
     }
 
 
@@ -241,37 +264,135 @@ def serve_main(argv=None):
     if args.n_layers is not None:
         cfg = cfg.scaled(n_layers=args.n_layers)
 
-    t0 = time.perf_counter()
-    server, h = build_server(
-        cfg, window=args.window, seq=args.seq, damping=args.damping,
-        max_tokens=args.max_tokens, max_requests=args.max_requests,
-        refresh_every=args.refresh_every, drift_tol=args.drift_tol,
-        drift_frac=args.drift_frac,
-        window_dtype=None if args.window_dtype == "fp32" else "bfloat16",
-        seed=args.seed, device=args.device)
-    print(f"resident window factorized: n={args.window} "
-          f"m={server.state.S.shape[1]} λ0={args.damping} [eager] on "
-          f"{h.device} ({(time.perf_counter() - t0) * 1e3:.0f} ms)",
-          flush=True)
+    registry = MetricsRegistry()
+    health = HealthMonitor(registry)
+    tracer = Tracer() if args.trace_out else None
+    profile = ProfileHooks(args.profile_dir) if args.profile_dir else None
+    recorder = None
+    if args.record_dir:
+        recorder = FlightRecorder(args.record_dir)
+        # a degraded/critical process that dies without flushing still
+        # leaves a final bundle behind
+        recorder.install_exit_capture()
+    endpoints = []
+    try:
+        t0 = time.perf_counter()
+        server, h = build_server(
+            cfg, window=args.window, seq=args.seq, damping=args.damping,
+            max_tokens=args.max_tokens, max_requests=args.max_requests,
+            refresh_every=args.refresh_every, drift_tol=args.drift_tol,
+            drift_frac=args.drift_frac,
+            window_dtype=None if args.window_dtype == "fp32" else "bfloat16",
+            seed=args.seed, audit_every=args.audit_every, registry=registry,
+            tracer=tracer, profile=profile, health=health, recorder=recorder,
+            device=args.device)
+        port = _start_endpoint(args, registry, health.report, endpoints)
+        print(f"resident window factorized: n={args.window} "
+              f"m={server.state.S.shape[1]} λ0={args.damping} [eager] on "
+              f"{h.device} ({(time.perf_counter() - t0) * 1e3:.0f} ms)",
+              flush=True)
 
-    out = serve_trace(server, h, requests=args.requests, window=args.window,
-                      adapt_examples=args.adapt_examples, seq=args.seq,
-                      decode_tokens=args.decode_tokens, damping=args.damping,
-                      lr=args.lr, burst=args.burst, seed=args.seed,
-                      log=lambda line: print(line, flush=True))
-    s = server.metrics.summary()
-    st = server.stats
-    dstate = out["damping_state"]
-    print(f"served {s['served']} requests: "
-          f"p50 {s['p50_ms']:.1f} ms  p99 {s['p99_ms']:.1f} ms  "
-          f"{s['rps']:.1f} req/s  {s['tokens_per_s']:.0f} tok/s")
-    print(f"window: adapted {int(st.adapted)} rows, "
-          f"{int(st.refreshes)} full refreshes over "
-          f"{int(st.microbatches)} microbatches "
-          f"(drift tol now "
-          f"{float(server.adaptation.effective_drift_tol(dstate)):.3g}, "
-          f"λ now {float(dstate.lam):.3g})")
+        def checkpoint(rounds: int) -> None:
+            ckpt.save(args.ckpt_dir, rounds,
+                      {"serve": serve_state_tree(server.state),
+                       "params": h.params},
+                      metadata={"arch": cfg.name})
+
+        def on_round(rounds: int) -> None:
+            if args.ckpt_every and rounds % args.ckpt_every == 0:
+                checkpoint(rounds)
+                if args.metrics_snapshot:
+                    write_snapshot(args.metrics_snapshot, registry.snapshot(),
+                                   health=health.report())
+
+        if profile is not None:
+            profile.start()
+        out = serve_trace(server, h, requests=args.requests,
+                          window=args.window,
+                          adapt_examples=args.adapt_examples, seq=args.seq,
+                          decode_tokens=args.decode_tokens,
+                          damping=args.damping, lr=args.lr, burst=args.burst,
+                          seed=args.seed, on_round=on_round,
+                          log=lambda line: print(line, flush=True))
+        s = server.metrics.summary()
+        st = server.stats
+        dstate = out["damping_state"]
+        print(f"served {s['served']} requests: "
+              f"p50 {s['p50_ms']:.1f} ms  p99 {s['p99_ms']:.1f} ms  "
+              f"{s['rps']:.1f} req/s  {s['tokens_per_s']:.0f} tok/s")
+        rep = health.report()
+        print(f"health: {rep['verdict']} "
+              f"(active: {sorted(rep['active']) or 'none'})")
+        print(f"window: adapted {int(st.adapted)} rows, "
+              f"{int(st.refreshes)} full refreshes over "
+              f"{int(st.microbatches)} microbatches "
+              f"(drift tol now "
+              f"{float(server.adaptation.effective_drift_tol(dstate)):.3g}, "
+              f"λ now {float(dstate.lam):.3g})")
+        rounds = out["rounds"]
+        if args.ckpt_every and rounds:
+            checkpoint(rounds)
+            print(f"checkpointed ServeState+params at round {rounds} "
+                  f"-> {args.ckpt_dir}")
+        if profile is not None:
+            profile.stop()
+            print(f"profile: torch.profiler trace -> {profile.trace_path}")
+        if recorder is not None:
+            nb = len(recorder.bundle_paths)
+            print(f"flight recorder: {nb} incident bundle(s)"
+                  + (f", last {recorder.bundle_paths[-1]}" if nb else "")
+                  + f" ({recorder.debounced} debounced)")
+        _finish_obs(args, registry.snapshot(), tracer=tracer, port=port,
+                    health_report=health.report())
+    finally:
+        for srv in endpoints:
+            srv.shutdown()
+            srv.server_close()
     return server, [rec["loss"] for rec in out["records"]]
+
+
+def _start_endpoint(args, registry, health, endpoints: list):
+    """``--metrics-port`` / ``--health-port``: bind the HTTP exposition
+    endpoint(s), each also serving ``health()`` at ``/health``; the
+    servers are appended to ``endpoints`` for the caller to close.
+    Returns the metrics port (None without ``--metrics-port``)."""
+    port = None
+    if args.metrics_port is not None:
+        srv, port = start_metrics_server(registry, port=args.metrics_port,
+                                         health=health)
+        endpoints.append(srv)
+        print(f"metrics endpoint: http://127.0.0.1:{port}/metrics",
+              flush=True)
+    if args.health_port is not None and args.health_port != port:
+        srv, hport = start_metrics_server(registry, port=args.health_port,
+                                          health=health)
+        endpoints.append(srv)
+        print(f"health endpoint: http://127.0.0.1:{hport}/health",
+              flush=True)
+    return port
+
+
+def _finish_obs(args, snapshot, *, tracer=None, port=None,
+                health_report=None):
+    """Exit-time observability: the snapshot file (the health report
+    embedded), the Chrome-trace export, and a self-scrape of the live
+    endpoint's ``/metrics`` and ``/health``."""
+    if args.metrics_snapshot:
+        write_snapshot(args.metrics_snapshot, snapshot, health=health_report)
+        print(f"metrics snapshot -> {args.metrics_snapshot}")
+    if tracer is not None and args.trace_out:
+        n = tracer.export(args.trace_out)
+        print(f"trace: {n} spans -> {args.trace_out}")
+    if port is not None:
+        body = urllib.request.urlopen(
+            f"http://127.0.0.1:{port}/metrics", timeout=10).read().decode()
+        series = [ln for ln in body.splitlines()
+                  if ln and not ln.startswith("#")]
+        print(f"metrics scrape: {len(series)} series from :{port}")
+        rep = json.loads(urllib.request.urlopen(
+            f"http://127.0.0.1:{port}/health", timeout=10).read())
+        print(f"health scrape: verdict={rep['verdict']} "
+              f"active={sorted(rep.get('active', {})) or 'none'}")
 
 
 if __name__ == "__main__":

@@ -17,9 +17,17 @@ baseline the cached path is measured against. Between microbatches the
 server folds adaptation rows (``OnlineAdaptation``) and lets its
 staleness policy decide on a refresh; per-request wall-clock latencies
 land in ``ServerMetrics``.
+
+The observability hooks are the reference's (``repro_torch.obs``): a
+metrics ``registry`` (latency and queue-wait histograms, stage counters,
+queue and factor gauges), a span ``tracer``, ``profile`` hooks around the
+solve, a ``health`` monitor and a flight ``recorder``. Every number they
+take is a host number the flush already has: the solve's wait is the one
+device sync a microbatch pays.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from collections import deque
 from typing import Any, List, NamedTuple, Optional
@@ -79,14 +87,26 @@ def _coalesced_solve(S, W, L, lam0: float, V, lams, *, mode: str,
     return fac.solve_batch(V, lams, jitter=jitter), None
 
 
+def _rows_k(rows) -> int:
+    """Row count of one request's adaptation payload."""
+    first = rows[0] if isinstance(rows, (tuple, list)) else rows
+    return int(first.shape[0])
+
+
 class ServerMetrics:
     """Per-request wall-clock accounting over a ring of the ``window`` most
-    recent requests; totals keep counting past the ring."""
+    recent requests; totals keep counting past the ring. With a
+    ``registry`` every record also lands in ``<prefix>.requests`` /
+    ``<prefix>.tokens`` counters and ``<prefix>.request_latency_s`` /
+    ``<prefix>.queue_wait_s`` histograms."""
 
-    def __init__(self, *, window: int = 4096):
+    def __init__(self, *, window: int = 4096, registry=None,
+                 prefix: str = "serve"):
         if window < 1:
             raise ValueError("window must be >= 1")
         self.window = int(window)
+        self.registry = registry
+        self.prefix = prefix
         self.reset()
 
     def reset(self) -> None:
@@ -96,12 +116,21 @@ class ServerMetrics:
         self._t0: Optional[float] = None
         self._t1: Optional[float] = None
 
-    def record(self, t_submit: float, t_done: float, tokens: int) -> None:
+    def record(self, t_submit: float, t_done: float, tokens: int,
+               queue_s: Optional[float] = None) -> None:
         self._ring.append((t_submit, t_done, tokens))
         self._count += 1
         self._tokens += tokens
         self._t0 = t_submit if self._t0 is None else min(self._t0, t_submit)
         self._t1 = t_done if self._t1 is None else max(self._t1, t_done)
+        reg = self.registry
+        if reg is not None:
+            p = self.prefix
+            reg.counter(f"{p}.requests").inc()
+            reg.counter(f"{p}.tokens").inc(int(tokens))
+            reg.histogram(f"{p}.request_latency_s").observe(t_done - t_submit)
+            if queue_s is not None:
+                reg.histogram(f"{p}.queue_wait_s").observe(max(queue_s, 0.0))
 
     @property
     def served(self) -> int:
@@ -140,6 +169,17 @@ class SolveServer:
       jitter: extra diagonal, as elsewhere.
       fused: route cached uniform-λ microbatches (monitoring off) through
         ``kernels.ops.serve_solve``; False forces the compositional solve.
+      registry: optional ``repro_torch.obs.MetricsRegistry`` — request
+        histograms and counters, queue and factor gauges; propagated to
+        the adaptation when it has none.
+      tracer: optional ``repro_torch.obs.Tracer`` — queue, solve, fold and
+        refresh spans, trace ids riding ``submit(trace=)``.
+      profile: optional ``repro_torch.obs.ProfileHooks`` — a labelled
+        range around each coalesced solve.
+      health: optional ``repro_torch.obs.HealthMonitor`` — propagated to
+        the adaptation and evaluated once per flush.
+      recorder: optional ``repro_torch.obs.FlightRecorder`` — a digest per
+        request and one ``observe`` of the state per flush.
     """
 
     def __init__(self, state: ServeState, *,
@@ -147,7 +187,9 @@ class SolveServer:
                  adaptation: Optional[OnlineAdaptation] = None,
                  policy: str = "cached", monitor_drift: bool = True,
                  jitter: float = 0.0, fused: bool = True,
-                 clock=time.perf_counter, metrics_window: int = 4096):
+                 clock=time.perf_counter, registry=None, tracer=None,
+                 profile=None, health=None, recorder=None,
+                 metrics_window: int = 4096):
         if policy not in ("cached", "refactorize"):
             raise ValueError(f"policy must be 'cached' or 'refactorize', "
                              f"got {policy!r}")
@@ -159,16 +201,32 @@ class SolveServer:
         self.jitter = float(jitter)
         self.fused = bool(fused)
         self.clock = clock
-        self.metrics = ServerMetrics(window=metrics_window)
+        self.registry = registry
+        self.tracer = tracer
+        self.profile = profile
+        self.health = health
+        self.recorder = recorder
+        self.metrics = ServerMetrics(window=metrics_window,
+                                     registry=registry, prefix="serve")
+        if adaptation is not None:
+            if registry is not None and adaptation.registry is None:
+                adaptation.registry = registry
+            if health is not None and adaptation.health is None:
+                adaptation.health = health
 
     def submit(self, v, *, damping: Optional[float] = None, tokens: int = 1,
-               rows=None, payload=None) -> int:
+               rows=None, payload=None, trace: Optional[str] = None) -> int:
         """Enqueue one request; returns its uid. ``damping=None`` means the
-        resident λ₀ (the fast path)."""
+        resident λ₀ (the fast path). ``trace`` tags the request's spans."""
         lam = self.state.lam0 if damping is None else float(damping)
         req = self.batcher.submit(v, damping=lam, tokens=tokens, rows=rows,
-                                  payload=payload)
+                                  payload=payload, trace=trace)
         req.t_submit = self.clock()
+        if self.registry is not None:
+            qs = self.batcher.queue_stats(req.t_submit)
+            self.registry.gauge("serve.queue_depth").set(qs["depth"])
+            self.registry.gauge("serve.queue_oldest_age_s").set(
+                qs["oldest_age_s"])
         return req.uid
 
     def solve_one(self, v, *, damping: Optional[float] = None,
@@ -191,25 +249,52 @@ class SolveServer:
         out: List[SolveResult] = []
         for mb in self.batcher.drain():
             out.extend(self._serve(mb))
-            if self.adaptation is None:
-                continue
-            for req in mb.requests:
-                if req.rows is not None:
-                    self.state = self.adaptation.fold(self.state, req.rows)
-            self.state, _ = self.adaptation.maybe_refresh(
-                self.state, damping_state=damping_state)
+            if self.adaptation is not None:
+                for req in mb.requests:
+                    if req.rows is None:
+                        continue
+                    span = self.tracer.span("fold", cat="adapt",
+                                            trace=req.trace) \
+                        if self.tracer is not None \
+                        else contextlib.nullcontext()
+                    with span:
+                        self.state = self.adaptation.fold(self.state,
+                                                          req.rows)
+                self.state, refreshed = self.adaptation.maybe_refresh(
+                    self.state, damping_state=damping_state)
+                if refreshed and self.tracer is not None:
+                    self.tracer.add("refresh", cat="adapt",
+                                    ts_us=time.time() * 1e6, dur_us=0.0)
+            if self.registry is not None:
+                self._health_gauges()
+        if self.health is not None:
+            self.health.evaluate()
+        if self.recorder is not None:
+            self.recorder.observe(self.state, adaptation=self.adaptation,
+                                  health=self.health, registry=self.registry,
+                                  tracer=self.tracer)
         return out
+
+    def _health_gauges(self) -> None:
+        """Factor gauges: host numbers of the state, no device read."""
+        reg = self.registry
+        reg.gauge("curvature.factor_age").set(self.state.age)
+        reg.gauge("curvature.last_drift_residual").set(
+            self.state.stats.last_residual)
 
     def _serve(self, mb: Microbatch) -> List[SolveResult]:
         st = self.state
         t_start = self.clock()
         uniform = all(r.damping == st.lam0 for r in mb.requests)
-        x, resid = _coalesced_solve(
-            st.S, st.W, st.L, st.lam0, mb.V, mb.dampings,
-            mode=serve_mode(st), jitter=self.jitter, uniform=uniform,
-            monitor=self.monitor_drift and self.policy == "cached",
-            refactorize=self.policy == "refactorize", fused=self.fused)
-        _wait(x)
+        step = self.profile.step(step=self.metrics.served) \
+            if self.profile is not None else contextlib.nullcontext()
+        with step:
+            x, resid = _coalesced_solve(
+                st.S, st.W, st.L, st.lam0, mb.V, mb.dampings,
+                mode=serve_mode(st), jitter=self.jitter, uniform=uniform,
+                monitor=self.monitor_drift and self.policy == "cached",
+                refactorize=self.policy == "refactorize", fused=self.fused)
+            _wait(x)
         t_done = self.clock()
 
         stats = st.stats._replace(
@@ -218,22 +303,55 @@ class SolveServer:
             last_residual=st.stats.last_residual if resid is None else resid)
         self.state = st._replace(age=st.age + 1, stats=stats)
 
+        if self.registry is not None:
+            self.registry.counter("serve.microbatches").inc()
+            self.registry.histogram("serve.solve_latency_s").observe(
+                t_done - t_start)
+        if self.tracer is not None:
+            # one epoch anchor a microbatch: spans land on the time.time()
+            # timeline, durations stay on the clock that stamped t_submit
+            epoch_done_us = time.time() * 1e6
+            solve_us = (t_done - t_start) * 1e6
+            self.tracer.add(
+                "device_solve", cat="solve", ts_us=epoch_done_us - solve_us,
+                dur_us=solve_us,
+                args={"k": mb.k, "uids": [r.uid for r in mb.requests],
+                      "tenant": None})
+
         results = []
         for j, req in enumerate(mb.requests):
             xj = tuple(xb[:, j] for xb in x) if isinstance(x, (tuple, list)) \
                 else x[:, j]
-            self.metrics.record(req.t_submit, t_done, req.tokens)
+            queue_s = max(t_start - req.t_submit, 0.0) \
+                if req.t_submit > 0.0 else None
+            self.metrics.record(req.t_submit, t_done, req.tokens,
+                                queue_s=queue_s)
+            if self.recorder is not None:
+                self.recorder.record_request(
+                    req.uid, damping=req.damping, tokens=req.tokens,
+                    k_rows=0 if req.rows is None else _rows_k(req.rows),
+                    latency_s=t_done - req.t_submit, residual=resid)
+            if self.tracer is not None and queue_s is not None:
+                e2e_us = (t_done - req.t_submit) * 1e6
+                self.tracer.add(
+                    "queue_wait", cat="queue", ts_us=epoch_done_us - e2e_us,
+                    dur_us=queue_s * 1e6, trace=req.trace,
+                    args={"uid": req.uid})
+                self.tracer.add(
+                    "request", cat="serve", ts_us=epoch_done_us - e2e_us,
+                    dur_us=e2e_us, trace=req.trace, args={"uid": req.uid})
             results.append(SolveResult(uid=req.uid, x=xj, damping=req.damping,
                                        latency_s=t_done - req.t_submit))
         return results
 
-    def apply_fold(self, rows, *, slots=None) -> None:
+    def apply_fold(self, rows, *, slots=None, record: bool = True) -> None:
         """Apply one fold to the resident window outside the request path
         (the replay entry point); ``slots`` are verified against the local
         FIFO cursor."""
         if self.adaptation is None:
             raise RuntimeError("apply_fold needs an OnlineAdaptation")
-        self.state = self.adaptation.fold(self.state, rows, slots=slots)
+        self.state = self.adaptation.fold(self.state, rows, slots=slots,
+                                          record=record)
 
     def refresh(self) -> None:
         """Force a full refactorization now (not on the request path)."""

@@ -10,12 +10,15 @@ scalar would make each read wait on the device.
 
 ``serve_state_arrays`` / ``serve_state_from_arrays`` use exactly the
 named-array format of the JAX package (bf16 stored as uint16 with a dtype
-tag), so a state written by one package loads in the other.
+tag), and ``save_serve_state`` / ``restore_serve_state`` its checkpoint
+layout (``repro_torch.checkpoint``: the window's blocks, W, L, then the
+scalars as 0-d float32/int32 leaves), so a state written by one package
+loads in the other.
 """
 from __future__ import annotations
 
 import hashlib
-from typing import NamedTuple, Tuple, Union
+from typing import NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -26,8 +29,9 @@ from repro_torch.core.solvers import (CholFactorization, _realify, cholesky,
                                       chol_factorize, gram, real_scalar)
 
 __all__ = ["ServeStats", "ServeState", "init_serve_state", "serve_mode",
-           "as_factorization", "resolve_device", "serve_state_arrays",
-           "serve_state_from_arrays"]
+           "as_factorization", "resolve_device", "restore_serve_state",
+           "save_serve_state", "serve_state_arrays", "serve_state_from_arrays",
+           "serve_state_from_tree", "serve_state_tree"]
 
 
 class ServeStats(NamedTuple):
@@ -162,6 +166,61 @@ _SCALARS = {"lam0": np.float32, "slot": np.int32, "age": np.int32,
             "stats_served": np.int32, "stats_microbatches": np.int32,
             "stats_adapted": np.int32, "stats_refreshes": np.int32,
             "stats_last_residual": np.float32}
+
+
+def serve_state_tree(state: ServeState) -> ServeState:
+    """The state as the reference's pytree flattens it, for a checkpoint:
+    S as the tuple of its blocks (``BlockedScores`` is a pytree of its
+    blocks there), the host scalars as 0-d numpy arrays of the dtypes the
+    reference holds them in."""
+    def scalar(key, value):
+        return np.asarray(value, _SCALARS[key])
+    S = tuple(state.S.blocks) if is_blocked(state.S) else state.S
+    stats = ServeStats(*(scalar(f"stats_{f}", v)
+                         for f, v in zip(state.stats._fields, state.stats)))
+    return ServeState(S=S, W=state.W, L=state.L,
+                      lam0=scalar("lam0", state.lam0),
+                      slot=scalar("slot", state.slot),
+                      age=scalar("age", state.age), stats=stats)
+
+
+def serve_state_from_tree(tree: ServeState, like: ServeState) -> ServeState:
+    """Inverse of ``serve_state_tree`` for a tree restored into
+    ``serve_state_tree(like)``: ``like``'s window layout (its blocks'
+    names) and Python numbers for the host scalars."""
+    def num(value, ref):
+        return type(ref)(np.asarray(value).item())
+    S = BlockedScores(tree.S, names=like.S.names) if is_blocked(like.S) \
+        else tree.S
+    stats = ServeStats(*(num(v, r) for v, r in zip(tree.stats, like.stats)))
+    return ServeState(S=S, W=tree.W, L=tree.L,
+                      lam0=num(tree.lam0, like.lam0),
+                      slot=num(tree.slot, like.slot),
+                      age=num(tree.age, like.age), stats=stats)
+
+
+def save_serve_state(ckpt_dir, step: int, state: ServeState, *,
+                     metadata: Optional[dict] = None, keep: int = 3):
+    """Checkpoint the state (atomic, keep-last-k — see
+    ``repro_torch.checkpoint``), in the reference's leaf order and
+    manifest: ``metadata`` carries ``{"kind": "serve_state", "blocked":
+    ...}`` plus the caller's."""
+    from repro_torch.checkpoint import checkpoint as ckpt
+    meta = {"kind": "serve_state", "blocked": bool(is_blocked(state.S)),
+            **(metadata or {})}
+    return ckpt.save(ckpt_dir, step, serve_state_tree(state), metadata=meta,
+                     keep=keep)
+
+
+def restore_serve_state(ckpt_dir, step: int, like: ServeState, *,
+                        device=None):
+    """Restore into the structure of ``like`` (e.g. a freshly initialized
+    state of the same shapes) — a checkpoint of either package. Tensors go
+    to ``device`` (default: ``like``'s). Returns (state, metadata)."""
+    from repro_torch.checkpoint import checkpoint as ckpt
+    tree, meta = ckpt.restore(ckpt_dir, step, serve_state_tree(like),
+                              device=device)
+    return serve_state_from_tree(tree, like), meta
 
 
 def serve_state_arrays(state: ServeState) -> Tuple[dict, dict]:

@@ -37,7 +37,10 @@ def test_port_imports_no_jax_and_no_repro():
                      "configs.gemma2_9b", "data", "data.pipeline", "launch",
                      "launch.train", "launch.trainer", "serve.main",
                      "serve.__main__", "launch.supervisor", "checkpoint",
-                     "checkpoint.checkpoint"):
+                     "checkpoint.checkpoint", "checkpoint.fleet",
+                     "serve.journal", "obs", "obs.metrics", "obs.trace",
+                     "obs.export", "obs.health", "obs.profile",
+                     "obs.recorder", "obs.forensics"):
             assert "repro_torch." + need in names, need
         print(len(names))
     """)

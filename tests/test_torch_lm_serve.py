@@ -16,7 +16,10 @@ from _torch_parity import rel
 from repro_torch import configs as tconfigs
 from repro_torch.core.pytree import params_to_arrays
 from repro_torch.launch.trainer import build_server
-from repro_torch.serve.main import serve_main, serve_trace
+from repro_torch.obs import FlightRecorder, HealthMonitor, MetricsRegistry
+from repro_torch.serve import OnlineAdaptation, SolveServer, init_serve_state
+from repro_torch.serve.main import (_later_flags, _parser, serve_main,
+                                    serve_trace)
 
 try:
     import jax
@@ -97,35 +100,85 @@ def test_one_request_round_matches_jax():
         assert rec[key] >= 0.0
 
 
-def test_cli_serves_on_the_cpu(capsys):
+def test_cli_serves_on_the_cpu(capsys, tmp_path):
+    ck = tmp_path / "ck"
     server, losses = serve_main(["--arch", "gemma2-2b", "--device", "cpu",
                                  "--requests", "3", "--window", "4",
                                  "--seq", "8", "--decode-tokens", "2",
-                                 "--burst", "2"])
+                                 "--burst", "2", "--ckpt-dir", str(ck)])
     assert len(losses) == 3 and np.isfinite(losses).all()
     assert server.stats.served == 3 and server.stats.adapted == 6
     out = capsys.readouterr().out
     assert "served 3 requests" in out and out.count("tokens [") == 3
+    # the reference's defaults: the audit every 4 maintenance passes, the
+    # health verdict, and an exit checkpoint of the 2 rounds
+    assert "health: ok" in out
+    assert server.adaptation.audit_every == 4
+    assert sorted(p.name for p in ck.iterdir()) == ["step_000000002"]
 
 
+# the cases keep the ids they had before the checkpoint and observability
+# flags left this list
 @pytest.mark.parametrize("flag", [
     ["--fleet", "2"], ["--async"], ["--mesh", "1d"], ["--tenants", "4"],
-    ["--ckpt-every", "8"], ["--metrics-port", "0"], ["--trace-out", "t.json"],
-    ["--profile-dir", "p"], ["--audit-every", "4"], ["--health-port", "0"],
-    ["--record-dir", "r"], ["--metrics-snapshot", "m.json"],
-    ["--mesh-shape", "1,2"], ["--no-reconcile"]])
+    ["--mesh-shape", "1,2"], ["--no-reconcile"]],
+    ids=["flag0", "flag1", "flag2", "flag3", "flag12", "flag13"])
 def test_later_flags_raise(flag):
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
         serve_main(["--device", "cpu"] + flag)
 
 
+@pytest.mark.parametrize("flag", [
+    ["--ckpt-every", "8"], ["--metrics-port", "0"], ["--trace-out", "t.json"],
+    ["--profile-dir", "p"], ["--audit-every", "4"], ["--health-port", "0"],
+    ["--record-dir", "r"], ["--metrics-snapshot", "m.json"]])
+def test_ported_serve_flags_are_not_refused(flag):
+    """The checkpoint and observability flags parse and ask for no later
+    slice (checked at the parser: nothing is built or served)."""
+    args = _parser().parse_args(flag)
+    dest = flag[0].lstrip("-").replace("-", "_")
+    assert str(getattr(args, dest)) == flag[1]
+    assert not any(asked for asked, _ in _later_flags(args).values())
+
+
 @pytest.mark.parametrize("option", [
-    {"layout": "1d"}, {"async_": True}, {"tenant_rank": 2},
-    {"audit_every": 4}, {"registry": object()}, {"record_dir": "r"}])
+    {"layout": "1d"}, {"async_": True}, {"tenant_rank": 2}])
 def test_later_server_options_raise(option):
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
         build_server(tconfigs.get_smoke(ARCH), window=4, seq=8,
                      device="cpu", **option)
+
+
+def _small_state():
+    S = torch.from_numpy(np.random.default_rng(3).normal(
+        size=(4, 32)).astype(np.float32))
+    return init_serve_state(S, 0.1, device="cpu")
+
+
+@pytest.mark.parametrize("option", ["audit_every", "registry", "recorder"])
+def test_ported_server_options_construct(option, tmp_path):
+    """``build_server``'s audit, registry and recorder options construct
+    the reference's objects (nothing is built or served)."""
+    if option == "audit_every":
+        ad = OnlineAdaptation(audit_every=4)
+        assert (ad.audit_every, ad.audit_probes, ad.condest_iters) \
+            == (4, 2, 2)
+        assert ad.registry is None and ad.health is None
+    elif option == "registry":
+        reg = MetricsRegistry()
+        mon = HealthMonitor(reg)
+        srv = SolveServer(_small_state(), adaptation=OnlineAdaptation(),
+                          registry=reg, health=mon)
+        # propagated to the adaptation, as the reference does
+        assert srv.adaptation.registry is reg
+        assert srv.adaptation.health is mon
+        assert srv.metrics.registry is reg and srv.metrics.prefix == "serve"
+    else:
+        rec = FlightRecorder(tmp_path)
+        assert rec.record_dir == str(tmp_path)
+        assert (rec.fingerprint_every, rec.max_tail, rec.debounce_s,
+                rec.keep, rec.max_spans) == (4, 1024, 30.0, 8, 512)
+        assert rec.bundle_paths == [] and rec.debounced == 0
 
 
 def test_not_ported_arch_raises_in_the_cli():

@@ -217,9 +217,15 @@ def test_routes_reset_and_plain_route_uncounted():
                                   ["--tenant-rank", "2"],
                                   ["--tenant-budget-mb", "64"]])
 def test_reference_serve_flags_raise_away_from_defaults(flag):
-    """The reference CLI's checkpoint and tenant flags parse; a value away
-    from the reference's default asks for a later slice."""
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
+    """The reference CLI's checkpoint and tenant flags parse. A tenant
+    flag away from the reference's default asks for a later slice; the
+    checkpoint directory is ported, and any value of it asks for none."""
+    if flag[0] == "--ckpt-dir":
+        args = _parser().parse_args(flag)
+        assert args.ckpt_dir == "ck"
+        assert not any(asked for asked, _ in _later_flags(args).values())
+        return
+    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
         serve_main(["--device", "cpu"] + flag)
 
 

@@ -314,8 +314,21 @@ def test_cache_state_is_pure_and_audit_matches_jax():
     assert ta["residual"] < 1e-5 and ja["residual"] < 1e-5
     tc.reset()
     assert tc.stats == st0.stats
-    with pytest.raises(NotImplementedError, match="observability"):
-        CurvatureCache(pol, registry=object())
+    # a metrics registry is accepted and counts as the reference's does
+    from repro.obs import MetricsRegistry as JRegistry
+    from repro_torch.obs import MetricsRegistry
+    jreg, treg = JRegistry(), MetricsRegistry()
+    jrc = jcurv.CurvatureCache(jcurv.StreamingCurvature(N, refresh_every=2),
+                               registry=jreg)
+    trc = CurvatureCache(pol, registry=treg)
+    for cache, S_, v_ in ((jrc, Sj, vj), (trc, St, vt)):
+        cache.solve(S_, v_, 0.1)
+        cache.solve(S_, v_, 0.1)
+    jsnap, tsnap = jreg.snapshot(), treg.snapshot()
+    assert tsnap["counters"] == jsnap["counters"] == {
+        "curvature.cache_hits": 1, "curvature.refreshes": 1}
+    assert tsnap["gauges"]["curvature.factor_age"] == \
+        jsnap["gauges"]["curvature.factor_age"] == 2.0
     with pytest.raises(ValueError, match="complex"):
         pol.solve(St.to(torch.complex64), vt, 0.1, st0)
     with pytest.raises(ValueError):
