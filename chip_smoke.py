@@ -56,6 +56,14 @@ Phases, each printing its own lines:
    ``tenant_factorization`` (kernel) against ``delta_factor`` (composed)
    and 8 solves against the private-window oracle (5e-3,
    ``benchmarks/serve_tenants.py``); an empty delta gives L bit for bit;
+10a. tenant serving — the dense trace of 4 with a zipf(1.5) tenant id a
+   request among 1,000 (rank 8), through ``SolveServer(tenants=
+   TenantManager)`` under a budget of one factor and 8 deltas: every
+   tenant microbatch on ``serve_solve`` against its L_t, every response
+   within 5e-3 of the private-window oracle for its delta at its solve,
+   evictions and activations, the same trace without a budget bit for
+   bit, on the CPU within 5e-3 with the same residency, the shared W and
+   L unchanged;
 11. streaming curvature — ``CurvatureCache`` at 512 × 100_000 over 6
    solves of a drifting window against the card's plain ``chol_solve``
    and the same trace on the CPU; ``StreamingGram`` over the 4 blocks;
@@ -85,7 +93,15 @@ Phases, each printing its own lines:
    attention launched, the exit checkpoint (≈ 20 GB, in a temporary
    directory) restored onto the card bit for bit; then ``--smoke`` on the
    card and on the CPU: the first three bursts' losses within 1e-3, equal
-   verdicts, each checkpoint restored into the other run's tree;
+   verdicts, each checkpoint restored into the other run's tree; the
+   ``--profile-dir`` trace starts before the server is built (its bytes
+   printed);
+13c. LM serving CLI with tenants — ``serve_main --full --n-layers 2
+   --tenants 16 --tenant-rank 4 --tenant-budget-mb 0.001`` (no
+   checkpoint): ``serve_solve`` launched, every x within 5e-3 of the
+   plain re-solve with the same tenant factor, the tenants line with
+   evictions; then ``--smoke --tenants 4`` on the card and on the CPU:
+   the first nine losses within 1e-3, equal tenants lines;
 13b. LM NGD trainer — the same 2-layer full-width llama3.2-3b in bf16
    under ``build_trainer`` (batch 8, seq 64, λ = 1e-3, lr 0.05; n = 8,
    m = 595,344,384): (a) 3 exact dense steps through
@@ -174,9 +190,12 @@ from repro_torch.serve import main as serve_cli  # noqa: E402
 from repro_torch.serve.main import serve_main, serve_trace  # noqa: E402
 from repro_torch.serve.state import (serve_mode,  # noqa: E402
                                      serve_state_from_tree, serve_state_tree)
-from repro_torch.tenants import (augmented_window,  # noqa: E402
-                                 delta_factor, delta_fold, init_tenant_delta,
-                                 project_rows, tenant_factorization)
+from repro_torch.core.solvers import cholesky as plain_cholesky  # noqa: E402
+from repro_torch.core.solvers import real_scalar  # noqa: E402
+from repro_torch.tenants import (TenantManager,  # noqa: E402
+                                 augmented_window, delta_factor, delta_fold,
+                                 init_tenant_delta, project_rows,
+                                 tenant_factorization)
 
 N, M, LAM0 = 1024, 100_000, 1e-3          # configs/paper.py Table-1 row
 WIDTHS = (40_000, 30_000, 20_000, 10_000)
@@ -230,6 +249,15 @@ SLIDES, SLIDE_K = 8, 16                 # benchmarks/amortized.py's slides
 FACTOR_GATE = 5e-3      # benchmarks/amortized.py:83, max-abs vs refactorized
 TENANT_RANK, TENANT_ROWS, TENANT_SOLVES = 8, 4, 8
 TENANT_GATE = 5e-3      # benchmarks/serve_tenants.py:99, vs private window
+# Tenant serving: the dense trace, a zipf(1.5) tenant id a request among
+# 1,000 tenants, rank 8 (benchmarks/serve_tenants.py:43). Every request's
+# rows fold into its tenant's delta, which drops that tenant's cached
+# factor, so at most one 4 MiB L_t is resident at a time and the trace's
+# 30 tenants hold ~1 MB of deltas: a budget of 32 MiB would never evict.
+# The budget holds one materialized factor and 8 deltas, so the LRU
+# spills and activates the trace's returning tenants.
+TENANTS, TENANT_ZIPF = 1000, 1.5
+TENANT_BUDGET = N * N * 4 + 8 * (N * TENANT_RANK * 4 + TENANT_RANK * 4 + 8)
 STREAM_N, STREAM_STEPS, STREAM_EPS = 512, 6, 1e-4
 # flash attention: the sweep of tests/test_kernels.py:116-146 and beyond
 FLASH_GQA = ((2, 1), (2, 2), (1, 4), (8, 3))          # (KH, group)
@@ -268,6 +296,10 @@ LM_MAX_TOKENS, LM_MAX_REQUESTS, LM_REFRESH, LM_SCORE_CHUNK = 64, 4, 16, 2
 # A decoded token may flip only where the two runs' top logits are
 # closer than twice that tolerance.
 LM_LOSS_GATE, LM_X_GATE, LM_LOGIT_GATE = 1e-3, 5e-3, 2e-2
+# The serving CLI with tenants at full width: 16 zipf tenants, rank 4, a
+# budget of 0.001 MiB (1,048 B: five rank-4 deltas of n = 8, 152 B each,
+# beside one cached 256 B factor), so the LRU evicts.
+LM_TENANTS, LM_TENANT_RANK, LM_TENANT_BUDGET_MB = 16, 4, 0.001
 # configs/shapes.py prefill_32k, batch cut from 32 to 1: the whole model
 LONG_T = 32_768
 # The NGD trainer on the LM: the same 2-layer full-width llama3.2-3b, bf16,
@@ -1441,6 +1473,176 @@ def tenant_path() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 10a. tenant serving: SolveServer(tenants=) over the dense trace
+# ---------------------------------------------------------------------------
+
+def tenant_ids() -> list:
+    """A zipf(1.5) tenant id a request of the trace, modulo TENANTS
+    (``benchmarks/serve_tenants.py``'s traffic: a few hot tenants, a long
+    cold tail)."""
+    rng = np.random.default_rng(SEED)
+    return [f"t{(int(rng.zipf(TENANT_ZIPF)) - 1) % TENANTS}"
+            for _ in range(REQUESTS)]
+
+
+def tenant_drive(S, vs, rows, lams, tids, device, budget, spill_dir,
+                 registry=None):
+    """Serve the dense trace with a tenant a request; returns (responses,
+    the delta each request was solved against, the server, the initial
+    state, the tenants activated from a spill in order). Each request's
+    rows fold into its tenant's delta; a warm-up on a throwaway manager
+    first (the host eigh's first call)."""
+    dev = torch.device(device)
+    state = init_serve_state(S.to(dev), LAM0, device=device)
+    vs = [v.to(dev) for v in vs]
+    rows = [r.to(dev) for r in rows]
+
+    def server(mgr, registry=None):
+        return SolveServer(state,
+                           batcher=TokenBudgetBatcher(max_requests=PER_MB),
+                           adaptation=OnlineAdaptation(refresh_every=4),
+                           monitor_drift=False, fused=True, tenants=mgr,
+                           registry=registry)
+
+    warm = server(TenantManager(TENANT_RANK, spill_dir=os.path.join(
+        spill_dir, "warm")))
+    for i in range(2):
+        warm.submit(vs[i], tenant="warm", rows=rows[i])
+        warm.flush()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    ops.reset_launch_counts()       # count the measured trace only
+
+    mgr = TenantManager(TENANT_RANK, budget_bytes=budget,
+                        spill_dir=os.path.join(spill_dir, str(budget)))
+    srv = server(mgr, registry)
+    deltas, serve = {}, srv._serve
+    activated, activate = [], mgr._activate
+
+    def spied(t, dev):
+        if not t.resident:
+            activated.append(t.tid)
+        return activate(t, dev)
+    mgr._activate = spied
+
+    def kept(mb):
+        out = serve(mb)
+        d = mgr._tenants[mb.tenant].delta    # resident: it just solved
+        for res in out:
+            deltas[res.uid] = d._replace(cols=d.cols.clone(),
+                                         signs=d.signs.clone())
+        return out
+    srv._serve = kept
+    out, index = {}, {}
+    for b in range(0, REQUESTS, PER_MB):
+        for i in range(b, b + PER_MB):
+            index[srv.submit(vs[i], damping=lams[i], rows=rows[i],
+                             tenant=tids[i])] = i
+        for res in srv.flush():
+            out[index[res.uid]] = res.x.float().cpu()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    srv._serve, mgr._activate = serve, activate
+    return out, {index[u]: d for u, d in deltas.items()}, srv, state, \
+        activated
+
+
+def tenant_serving_path(trace) -> dict:
+    """The dense trace with zipf tenant ids through ``SolveServer(
+    tenants=TenantManager(rank 8))`` on the card under a byte budget that
+    evicts. Gates: every response within TENANT_GATE of the private-window
+    oracle (``augmented_window`` + ``chol_factorize``) for the delta as it
+    stood at that solve, the hottest tenants and those spilled and
+    activated again among them; the same trace without a budget bit for
+    bit; the same trace on the CPU within TENANT_GATE; the shared W and L
+    unchanged bit for bit; ``serve_solve`` launched, evictions and
+    activations > 0. Spills go to a temporary directory, removed after."""
+    S, vs, rows, lams = trace
+    tids = tenant_ids()
+    tmp = tempfile.mkdtemp(prefix="tenant_spill_")
+    try:
+        reg = MetricsRegistry()
+        t0 = time.perf_counter()
+        gx, gdeltas, srv, init, activated = tenant_drive(
+            S, vs, rows, lams, tids, "cuda", TENANT_BUDGET, tmp, reg)
+        counts = ops.launch_counts()
+        t_gpu = time.perf_counter() - t0
+        summary, mgr = srv.metrics.summary(), srv.tenants
+        p = mgr.packing_stats()
+        hist = reg.snapshot()["histograms"]
+
+        def mean_ms(name):
+            h = hist.get(name, {"count": 0})
+            return h["sum"] / h["count"] * 1e3 if h["count"] else float("nan")
+        activated = sorted(set(activated))
+        print(f"  tenant GPU: p50 {summary['p50_ms']:.3f} ms  p99 "
+              f"{summary['p99_ms']:.3f} ms  {summary['rps']:.1f} req/s "
+              f"(phase {t_gpu:.1f} s); {p['tenants']} tenants, "
+              f"{srv.state.stats.microbatches} microbatches; evictions "
+              f"{p['evictions']} ({mean_ms('tenants.evict_latency_s'):.3f} ms"
+              f" mean), activations {p['activations']} "
+              f"({mean_ms('tenants.activate_latency_s'):.3f} ms mean), "
+              f"factor builds {p['materializations']}, hits "
+              f"{p['factor_hits']}; resident {p['resident']} "
+              f"({p['resident_bytes']} B of a {TENANT_BUDGET} B budget); "
+              f"hot {p['hot']}; spilled and activated again: {activated}; "
+              f"launches " + ", ".join(f"{k}={v}" for k, v in counts.items()
+                                      if v), flush=True)
+        if not (srv.state.W is init.W or torch.equal(srv.state.W, init.W)) \
+                or not torch.equal(srv.state.L, init.L) or \
+                srv.state.stats.adapted != 0:
+            raise AssertionError("tenant serving: the shared window changed")
+        require_launches("tenant serving", counts, "serve_solve")
+        if not (p["evictions"] > 0 and p["activations"] > 0
+                and len(activated) >= 2):
+            raise AssertionError(f"tenant serving: the budget evicted or "
+                                 f"activated too little: {p}")
+        # the private-window oracle, per request, for its delta at its solve
+        worst, by_tenant = 0.0, {}
+        for i in range(REQUESTS):
+            d = gdeltas[i]
+            lam = LAM0 if lams[i] is None else lams[i]
+            oracle = chol_factorize(augmented_window(init, d), lam).solve(
+                vs[i].cuda()).float().cpu()
+            err = rel2(gx[i], oracle)
+            by_tenant[tids[i]] = max(by_tenant.get(tids[i], 0.0), err)
+            worst = max(worst, err)
+            if gx[i].shape != (M,) or not torch.isfinite(gx[i]).all():
+                raise AssertionError("tenant serving: response not a finite "
+                                     "(m,)")
+        hot = sorted(p["hot"], key=lambda t: -p["hot"][t])[:2]
+        t0 = time.perf_counter()
+        ux, _, usrv, _, _ = tenant_drive(S, vs, rows, lams, tids, "cuda", None,
+                                      tmp)
+        same = all(torch.equal(gx[i], ux[i]) for i in range(REQUESTS))
+        t_unb = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cx, _, csrv, _, _ = tenant_drive(S, vs, rows, lams, tids, "cpu",
+                                      TENANT_BUDGET, tmp)
+        cpu_worst = max(rel(gx[i], cx[i]) for i in range(REQUESTS))
+        t_cpu = time.perf_counter() - t0
+        print(f"  vs the private-window oracle: worst {worst:.2e} (gate "
+              f"{TENANT_GATE:g}); hottest "
+              + ", ".join(f"{t} {by_tenant[t]:.2e}" for t in hot)
+              + "; spilled and activated again "
+              + ", ".join(f"{t} {by_tenant[t]:.2e}" for t in activated)
+              + f"; without a budget ({usrv.tenants.stats.evictions} "
+              f"evictions, {t_unb:.1f} s) bit for bit: {same}; the CPU "
+              f"({csrv.tenants.stats.evictions} evictions, {t_cpu:.1f} s) "
+              f"worst {cpu_worst:.2e} (gate {TENANT_GATE:g})", flush=True)
+        if not worst < TENANT_GATE or not same or \
+                not cpu_worst < TENANT_GATE:
+            raise AssertionError("tenant serving: responses disagree with "
+                                 "the oracle, the unbudgeted run or the CPU")
+        if csrv.tenants.packing_stats() != p:
+            raise AssertionError("tenant serving: the CPU's residency "
+                                 "differs from the card's")
+        return {"counts": counts, "summary": summary, "packing": p}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
 # 11. the streaming curvature cache
 # ---------------------------------------------------------------------------
 
@@ -1965,7 +2167,9 @@ def lm_cli_path() -> dict:
               f"round {rounds}, {ck_bytes} B (window {window_b} B, params "
               f"{param_b} B) written in "
               + "/".join(f"{t:.1f}" for t in saves) + f" s; "
-              f"{cli_line(out, 'profile: ')}; "
+              f"{cli_line(out, 'profile: ')} "
+              f"({sum(f.stat().st_size for f in Path(prof).iterdir())} B, "
+              f"started before the server was built); "
               f"launches " + ", ".join(f"{k}={v}" for k, v in counts.items()
                                       if v), flush=True)
         if len(requests) < len(losses) or len(losses) != 12:
@@ -2103,6 +2307,120 @@ def cli_smoke(tmp: str, device: str = "cuda") -> None:
             max(cross.values()) != 0.0:
         raise AssertionError("LM serving CLI: the card's and the CPU's "
                              "--smoke runs disagree")
+
+
+def tenant_resolve_check(server, errs: dict, sync):
+    """Wrap the server's microbatch solve: after each tenant microbatch,
+    hold every request's x to v solved on the plain route
+    (``ops.default_mode("ref")``) with the same tenant factor, rebuilt as
+    the manager builds it from the delta the request was solved against
+    (errs[uid]). The check's time is taken off the server's clock.
+    Returns the undo."""
+    serve, clock = server._serve, server.clock
+    paused = [0.0]
+
+    def checked(mb):
+        st = server.state
+        out = serve(mb)
+        if mb.tenant is None:
+            return out
+        t0 = time.perf_counter()
+        delta = server.tenants._tenants[mb.tenant].delta
+        with ops.default_mode("ref"):
+            for j, res in enumerate(out):
+                lam = res.damping
+                base = st.L if lam == st.lam0 else plain_cholesky(
+                    st.W + lam * torch.eye(st.W.shape[0], dtype=st.W.dtype,
+                                           device=st.W.device))
+                L_t = delta_factor(delta, base, lam)
+                x_plain = ops.serve_solve(st.S, L_t, mb.V[:, j],
+                                          real_scalar(lam, st.W.dtype))
+                errs[res.uid] = float(
+                    (res.x - x_plain).abs().max()
+                    / x_plain.abs().max().clamp_min(1e-30))
+        sync()
+        paused[0] += time.perf_counter() - t0
+        return out
+
+    def undo():
+        server._serve, server.clock = serve, clock
+        return paused[0]
+    server._serve = checked
+    server.clock = lambda: clock() - paused[0]
+    return undo
+
+
+def lm_tenant_cli_path() -> dict:
+    """``python -m repro_torch.serve --full --n-layers 2 --tenants 16
+    --tenant-rank 4 --tenant-budget-mb 0.001`` on the card (the reference's
+    defaults otherwise; no checkpoint, which the CLI phase before covers):
+    every microbatch is one tenant's, solved by ``serve_solve`` against
+    its L_t at the request's λ (0.01, which is not the fp32 λ₀: the base
+    is re-damped). Gates: ``serve_solve`` launched, every x within
+    LM_X_GATE of the plain re-solve with the same tenant factor
+    (``tenant_resolve_check``), the tenants line with evictions. Then
+    ``--smoke --tenants 4`` on the card and on the CPU: the first nine
+    losses within LM_LOSS_GATE, the tenants lines equal."""
+    tmp = tempfile.mkdtemp(prefix="serve_tenants_")
+    tempdir = tempfile.tempdir
+    tempfile.tempdir = tmp          # the managers' spill directories
+    try:
+        sync = torch.cuda.synchronize
+        errs = {}
+        ops.reset_launch_counts()
+        server, losses, h, out, wall, _ = run_cli(
+            ["--arch", LM_ARCH, "--full", "--n-layers", str(LM_LAYERS),
+             "--device", "cuda", "--tenants", str(LM_TENANTS),
+             "--tenant-rank", str(LM_TENANT_RANK), "--tenant-budget-mb",
+             str(LM_TENANT_BUDGET_MB), "--ckpt-every", "0", "--ckpt-dir",
+             os.path.join(tmp, "ck")],
+            on_build=lambda srv, _: tenant_resolve_check(srv, errs, sync))
+        counts = ops.launch_counts()
+        line = cli_line(out, "tenants: ")
+        p = server.tenants.packing_stats()
+        s = server.metrics.summary()
+        print(f"  serve_main --tenants {LM_TENANTS} (kernels): {wall:.1f} s;"
+              f" m = {server.state.S.shape[1]:,}; solve p50 "
+              f"{s['p50_ms']:.1f} ms, p99 {s['p99_ms']:.1f} ms, "
+              f"{s['rps']:.2f} req/s; {line}; x vs the plain re-solve with "
+              f"the same tenant factor, worst {max(errs.values()):.2e} over "
+              f"{len(errs)} requests (gate {LM_X_GATE:g}); launches "
+              + ", ".join(f"{k}={v}" for k, v in counts.items() if v),
+              flush=True)
+        require_launches("LM serving CLI, tenants", counts, "serve_solve")
+        if len(errs) != len(losses) or len(losses) != 12 or \
+                not max(errs.values()) < LM_X_GATE:
+            raise AssertionError("LM serving CLI, tenants: a response "
+                                 "disagrees with its plain re-solve")
+        if not p["evictions"] > 0 or server.state.stats.adapted != 0:
+            raise AssertionError(f"LM serving CLI, tenants: no eviction, or "
+                                 f"the shared window folded: {p}")
+        del server, h
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        smoke = {}
+        for run, dev in (("card", "cuda"), ("cpu", "cpu")):
+            srv, losses, _, out, wall, _ = run_cli(
+                ["--arch", LM_ARCH, "--device", dev, "--tenants", "4",
+                 "--ckpt-every", "0", "--ckpt-dir",
+                 os.path.join(tmp, f"smoke_{run}")])
+            smoke[run] = (losses, cli_line(out, "tenants: "), wall)
+        (kl, kline, kwall), (cl, cline, cwall) = smoke["card"], smoke["cpu"]
+        errs = [abs(a - b) / abs(b) for a, b in zip(kl, cl)]
+        print(f"  --smoke --tenants 4 on the card ({kwall:.1f} s) and on the"
+              f" CPU ({cwall:.1f} s): losses vs the CPU per request "
+              + " ".join(f"{e:.1e}" for e in errs) + f"; worst of the first "
+              f"nine {max(errs[:9]):.2e} (gate {LM_LOSS_GATE:g}); tenants "
+              f"lines equal: {kline == cline}", flush=True)
+        if len(errs) != 12 or not max(errs[:9]) < LM_LOSS_GATE or \
+                kline != cline:
+            raise AssertionError("LM serving CLI, tenants: the card's and "
+                                 "the CPU's --smoke runs disagree")
+        return {"counts": counts}
+    finally:
+        tempfile.tempdir = tempdir
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def long_prefill(cfg, T, device="cuda") -> dict:
@@ -2758,6 +3076,10 @@ def main() -> int:
             f"{k}={v}" for k, v in paths[label].items() if v))
         if paths[label]["cholupdate"] == 0:
             raise AssertionError(f"cholupdate never launched on {label}")
+    phase(f"tenant serving, dense window {N}x{M} fp32: the dense trace with "
+          f"zipf({TENANT_ZIPF:g}) tenant ids among {TENANTS}, rank "
+          f"{TENANT_RANK}, a {TENANT_BUDGET} B budget")
+    paths["tenant serving"] = tenant_serving_path(trace)["counts"]
     phase(f"streaming curvature, {STREAM_N}x{M}, {STREAM_STEPS} solves")
     streaming_path()
 
@@ -2779,6 +3101,13 @@ def main() -> int:
     paths["LM serving CLI"] = lm_cli_path()["counts"]
     gc.collect()
     torch.cuda.empty_cache()
+    phase(f"LM serving CLI with tenants: python -m repro_torch.serve --full "
+          f"--n-layers {LM_LAYERS} --tenants {LM_TENANTS} --tenant-rank "
+          f"{LM_TENANT_RANK} --tenant-budget-mb {LM_TENANT_BUDGET_MB:g}; "
+          f"then --smoke --tenants 4 on the card and on the CPU")
+    paths["LM serving CLI, tenants"] = lm_tenant_cli_path()["counts"]
+    gc.collect()
+    torch.cuda.empty_cache()
     phase(f"LM NGD trainer, {LM_ARCH} at published widths, {LM_LAYERS} "
           f"layers, bf16, batch {TRAIN_BATCH}, seq {TRAIN_SEQ}, λ = "
           f"{TRAIN_LAM:g}, lr {TRAIN_LR:g}")
@@ -2794,7 +3123,8 @@ def main() -> int:
                                          LONG_T)["counts"]
     gc.collect()
     torch.cuda.empty_cache()
-    for label in ("LM serving", "LM serving CLI", "LM NGD trainer",
+    for label in ("tenant serving", "LM serving", "LM serving CLI",
+                  "LM serving CLI, tenants", "LM NGD trainer",
                   "long prefill"):
         print(f"  launches on {label}: " + ", ".join(
             f"{k}={v}" for k, v in paths[label].items() if v))

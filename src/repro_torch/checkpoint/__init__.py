@@ -1,7 +1,7 @@
 """Checkpoints (port of ``repro.checkpoint``): the atomic step directory of
 ``checkpoint.py``, in the reference's on-disk layout, and the npz bundles
-of ``fleet.py``. The fleet's manifests and the tenants' spill come with
-later slices (``repro_torch.roadmap``)."""
+of ``fleet.py`` (whose tenant spill the tenant manager uses). The
+fleet's manifests come with a later slice (``repro_torch.roadmap``)."""
 from repro_torch.checkpoint.checkpoint import (all_steps, latest_step,
                                                restore, save)
 from repro_torch.checkpoint.fleet import load_npz_bundle, save_npz_bundle

@@ -2,9 +2,10 @@
 ``save_npz_bundle`` / ``load_npz_bundle``): named numpy arrays plus a JSON
 meta blob under ``__meta__``, written atomically (.tmp → fsync →
 rename), so readers never see a torn file. The flight recorder's incident
-bundles use it; a bundle written by either package loads in the other.
-The fleet manifests and the tenants' spill that the reference keeps in
-this module come with the fleet and tenants (``repro_torch.roadmap``).
+bundles and the tenant manager's spills (``save_tenant_spill``) use it; a
+bundle written by either package loads in the other. The fleet manifests
+that the reference keeps in this module come with the fleet
+(``repro_torch.roadmap``).
 """
 from __future__ import annotations
 
@@ -14,8 +15,10 @@ import pathlib
 from typing import Tuple
 
 import numpy as np
+import torch
 
-__all__ = ["save_npz_bundle", "load_npz_bundle"]
+__all__ = ["save_npz_bundle", "load_npz_bundle", "save_tenant_spill",
+           "load_tenant_spill"]
 
 
 def save_npz_bundle(path, arrays: dict, meta: dict) -> pathlib.Path:
@@ -41,3 +44,28 @@ def load_npz_bundle(path) -> Tuple[dict, dict]:
         meta = json.loads(bytes(z["__meta__"]).decode("utf-8"))
         arrays = {k: z[k] for k in z.files if k != "__meta__"}
     return arrays, meta
+
+
+def _host(a) -> np.ndarray:
+    """A host numpy array of ``a``; a bf16 tensor as raw two-byte records
+    (``|V2``), as numpy writes the reference's bfloat16 arrays."""
+    if isinstance(a, torch.Tensor):
+        t = a.detach().cpu().contiguous()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view("V2")
+        return t.numpy()
+    return np.asarray(a)
+
+
+def save_tenant_spill(path, arrays: dict, meta: dict) -> pathlib.Path:
+    """Spill one tenant's delta (tenant id, journal position in ``meta``)
+    — the npz-bundle format under its historical name. Tensors on any
+    device are written from a host copy."""
+    return save_npz_bundle(path, {k: _host(v) for k, v in arrays.items()},
+                           meta)
+
+
+def load_tenant_spill(path) -> Tuple[dict, dict]:
+    """Inverse of ``save_tenant_spill``: returns (arrays, meta), numpy
+    arrays as stored (bf16 as ``|V2`` records)."""
+    return load_npz_bundle(path)

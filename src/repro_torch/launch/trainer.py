@@ -12,11 +12,10 @@ Entry points run on CUDA unless given ``device="cpu"`` / ``--device
 cpu``, where the kernels' plain versions run.
 
 ``build_server`` is the eager replicated server of the reference, with
-its observability hooks and audit. Its other flavours raise
-``NotImplementedError`` naming the queue that ports them
-(``repro_torch.roadmap``): ``layout``/``async_`` (the sharded tier) and
-the tenant options; so does ``train_main``'s ``--mesh-shape`` away from
-``1,1``.
+its observability hooks, audit and tenant manager. Its other flavours
+raise ``NotImplementedError`` naming the queue that ports them
+(``repro_torch.roadmap``): ``layout``/``async_`` (the sharded tier); so
+does ``train_main``'s ``--mesh-shape`` away from ``1,1``.
 """
 from __future__ import annotations
 
@@ -221,8 +220,6 @@ def _build_serve_front(cfg, *, window: int, seq: int, score_chunk=None,
 _LATER = {
     "layout": "sharded",
     "async_": "sharded",
-    "tenant_rank": "tenants",
-    "tenant_budget_mb": "tenants",
 }
 
 
@@ -249,6 +246,11 @@ def build_server(cfg, *, window: int, seq: int, damping: float = 1e-3,
     versions. ``window_dtype`` (e.g. "bfloat16"): low-precision window
     storage, every S pass still accumulating fp32.
 
+    ``tenant_rank`` (int): attach a ``repro_torch.tenants.TenantManager``
+    so ``submit(..., tenant=...)`` serves per-tenant rank-r deltas over
+    the shared base factor; ``tenant_budget_mb`` caps resident tenant
+    bytes (LRU spill past it).
+
     ``registry`` / ``tracer`` / ``profile`` / ``health`` / ``recorder``
     (``repro_torch.obs``) thread the observability fabric through the
     server; ``audit_every`` runs the factor audit (``audit_probes``
@@ -259,8 +261,7 @@ def build_server(cfg, *, window: int, seq: int, damping: float = 1e-3,
     from repro_torch.serve import (OnlineAdaptation, SolveServer,
                                    TokenBudgetBatcher, init_serve_state)
 
-    given = {"layout": layout, "async_": async_, "tenant_rank": tenant_rank,
-             "tenant_budget_mb": tenant_budget_mb}
+    given = {"layout": layout, "async_": async_}
     for name, value in given.items():
         if value not in (None, False):
             raise NotImplementedError(
@@ -277,13 +278,21 @@ def build_server(cfg, *, window: int, seq: int, damping: float = 1e-3,
                                   audit_probes=audit_probes)
     batcher = TokenBudgetBatcher(max_tokens=max_tokens,
                                  max_requests=max_requests, oversize=oversize)
+    tenants = None
+    if tenant_rank is not None:
+        from repro_torch.tenants import TenantManager
+        tenants = TenantManager(
+            int(tenant_rank),
+            budget_bytes=None if tenant_budget_mb is None
+            else int(float(tenant_budget_mb) * 2**20),
+            registry=registry)
     state = init_serve_state(S0, damping, jitter=jitter,
                              window_dtype=window_dtype)
     del S0
     server = SolveServer(state, batcher=batcher, adaptation=adaptation,
-                         policy=policy, jitter=jitter, registry=registry,
-                         tracer=tracer, profile=profile, health=health,
-                         recorder=recorder)
+                         policy=policy, jitter=jitter, tenants=tenants,
+                         registry=registry, tracer=tracer, profile=profile,
+                         health=health, recorder=recorder)
     return server, handles
 
 

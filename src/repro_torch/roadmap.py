@@ -7,7 +7,6 @@ from __future__ import annotations
 __all__ = ["QUEUES", "queue"]
 
 QUEUES = {
-    "tenants": ("A5", "tenants"),
     "models": ("A6", "the other model families"),
     "sharded": ("A7", "the sharded tier"),
     "fleet": ("A8", "the fleet"),

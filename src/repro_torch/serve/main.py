@@ -11,7 +11,10 @@ request ``serve_trace``
 1. runs the score-grad pass (``launch.train.make_score_grads``) — the
    mean-gradient RHS v plus per-sample score rows for the window fold;
 2. submits v to the token-budget batcher with the request's λ (every
-   fifth request asks for 4λ₀);
+   fifth request asks for 4λ₀) and, under ``--tenants N``, a zipf(1.5)
+   tenant id among N (its rows then fold into that tenant's rank-r delta,
+   ``--tenant-rank``, under the ``--tenant-budget-mb`` residency budget;
+   a ``tenants:`` packing line prints at exit);
 3. flushes coalesced microbatches through the ``SolveServer`` (resident
    factor; no Gram on the request path), applies the natural-gradient
    updates to the live params, feeds the Levenberg–Marquardt damping
@@ -29,12 +32,14 @@ after p50/p99 solve latency, requests/sec and the window counters. The
 observability flags are the reference's: ``--metrics-port`` /
 ``--health-port`` (HTTP endpoints, self-scraped at exit),
 ``--metrics-snapshot``, ``--trace-out`` (a Chrome trace),
-``--profile-dir`` (``torch.profiler``) and ``--record-dir`` (the flight
-recorder). ``--smoke`` (the default) serves the architecture's reduced
-config; ``--full`` its published widths, ``--n-layers`` cuts the depth.
-The fleet, the async and sharded servers and tenants come with later
-slices (``repro_torch.roadmap``) and raise ``NotImplementedError`` when
-asked for.
+``--profile-dir`` (``torch.profiler``, started before the server is
+built, so the trace holds the model build and the window's
+factorization) and ``--record-dir`` (the flight recorder). ``--smoke``
+(the default) serves the architecture's reduced config; ``--full`` its
+published widths, ``--n-layers`` cuts the depth.
+The fleet and the async and sharded servers come with later slices
+(``repro_torch.roadmap``) and raise ``NotImplementedError`` when asked
+for.
 """
 from __future__ import annotations
 
@@ -69,21 +74,27 @@ def _sync(device: torch.device) -> float:
 
 def serve_trace(server, h, *, requests: int, window: int, adapt_examples: int,
                 seq: int, decode_tokens: int, damping: float, lr: float,
-                burst: int, seed: int = 0, keep_logits: bool = False,
+                burst: int, seed: int = 0, tenants: int = 0,
+                keep_logits: bool = False,
                 on_result: Optional[Callable] = None,
                 on_round: Optional[Callable] = None, log=print) -> dict:
     """Serve ``requests`` synthetic requests; the per-request loop of the
     reference's eager ``serve_main``.
 
+    ``tenants`` > 0: each request carries the tenant id
+    ``t{(zipf(1.5) − 1) mod tenants}``, drawn from the request loop's rng
+    after its λ, as the reference does (no draw without tenants, so the
+    stream is unchanged then).
+
     Returns ``{"records": [...], "damping_state", "rounds"}``, one record
     per served request in completion order: ``request``, ``uid``,
-    ``damping``, ``loss`` (before its update), ``tokens`` (greedy ids),
-    ``solve_ms`` (the server's submit → solution latency), and the wall
-    times ``score_ms`` (score pass), ``flush_ms`` (its flush's time over
-    the flush's requests), ``apply_ms`` (update + damping feedback) and
-    ``decode_ms`` (prefill + decode), each ended by a device sync; with
-    ``keep_logits`` also ``logits``, the (decode_tokens, V) fp32 logits
-    of the greedy steps, on the host. ``on_result(record, result)`` sees
+    ``tenant``, ``damping``, ``loss`` (before its update), ``tokens``
+    (greedy ids), ``solve_ms`` (the server's submit → solution latency),
+    and the wall times ``score_ms`` (score pass), ``flush_ms`` (its
+    flush's time over the flush's requests), ``apply_ms`` (update +
+    damping feedback) and ``decode_ms`` (prefill + decode), each ended by
+    a device sync; with ``keep_logits`` also ``logits``, the
+    (decode_tokens, V) fp32 logits of the greedy steps, on the host. ``on_result(record, result)`` sees
     each solve result (``result.x``) before the next request is served;
     ``on_round(rounds)`` runs after each flush that served requests (the
     CLI's checkpoint cadence).
@@ -103,11 +114,15 @@ def serve_trace(server, h, *, requests: int, window: int, adapt_examples: int,
         loss, v, rows = h.score_grads(h.params, ex)
         # per-request λ: occasional requests ask for extra damping
         lam = damping * (4.0 if r % 5 == 4 else 1.0)
+        # zipf tenant traffic: a few hot tenants, a long cold tail
+        tenant = f"t{(int(rng.zipf(1.5)) - 1) % tenants}" \
+            if tenants else None
         uid = server.submit(v, damping=lam, tokens=adapt_examples * seq,
-                            rows=rows)
+                            rows=rows, tenant=tenant)
         del rows
-        rec = {"request": r, "uid": uid, "damping": lam, "loss": float(loss),
-               "tokens": [], "score_ms": (_sync(dev) - t0) * 1e3}
+        rec = {"request": r, "uid": uid, "tenant": tenant, "damping": lam,
+               "loss": float(loss), "tokens": [],
+               "score_ms": (_sync(dev) - t0) * 1e3}
         pending[uid] = (v, rec, ex)
 
         if (r + 1) % burst and r != requests - 1:
@@ -204,11 +219,16 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--route", choices=["round_robin", "least_loaded",
                                         "by_adapter"], default="round_robin")
     ap.add_argument("--no-reconcile", action="store_true")
-    ap.add_argument("--tenants", type=int, default=0, metavar="N")
+    ap.add_argument("--tenants", type=int, default=0, metavar="N",
+                    help="multi-tenant trace: requests carry zipf-"
+                         "distributed tenant ids over N tenants; each "
+                         "tenant's rows fold into its own rank-r delta "
+                         "over the shared base factor (0: off)")
     ap.add_argument("--tenant-rank", type=int, default=4,
                     help="per-tenant delta rank budget r (--tenants)")
     ap.add_argument("--tenant-budget-mb", type=float, default=None,
-                    help="resident tenant byte budget in MiB (--tenants)")
+                    help="resident tenant byte budget in MiB; LRU spill "
+                         "past it (--tenants; default: unbounded)")
     ap.add_argument("--ckpt-dir", default="artifacts/serve_ckpt")
     ap.add_argument("--ckpt-every", type=int, default=8,
                     help="checkpoint cadence in flush rounds (0: off)")
@@ -248,9 +268,6 @@ def _later_flags(args) -> dict:
         "--async": (args.async_, "sharded"),
         "--mesh": (args.mesh != "replicated", "sharded"),
         "--mesh-shape": (args.mesh_shape.replace(" ", "") != "1,1", "launch"),
-        "--tenants": (args.tenants > 0, "tenants"),
-        "--tenant-rank": (args.tenant_rank != 4, "tenants"),
-        "--tenant-budget-mb": (args.tenant_budget_mb is not None, "tenants"),
     }
 
 
@@ -268,6 +285,8 @@ def serve_main(argv=None):
     health = HealthMonitor(registry)
     tracer = Tracer() if args.trace_out else None
     profile = ProfileHooks(args.profile_dir) if args.profile_dir else None
+    if profile is not None:
+        profile.start()
     recorder = None
     if args.record_dir:
         recorder = FlightRecorder(args.record_dir)
@@ -283,6 +302,8 @@ def serve_main(argv=None):
             refresh_every=args.refresh_every, drift_tol=args.drift_tol,
             drift_frac=args.drift_frac,
             window_dtype=None if args.window_dtype == "fp32" else "bfloat16",
+            tenant_rank=args.tenant_rank if args.tenants else None,
+            tenant_budget_mb=args.tenant_budget_mb,
             seed=args.seed, audit_every=args.audit_every, registry=registry,
             tracer=tracer, profile=profile, health=health, recorder=recorder,
             device=args.device)
@@ -305,14 +326,13 @@ def serve_main(argv=None):
                     write_snapshot(args.metrics_snapshot, registry.snapshot(),
                                    health=health.report())
 
-        if profile is not None:
-            profile.start()
         out = serve_trace(server, h, requests=args.requests,
                           window=args.window,
                           adapt_examples=args.adapt_examples, seq=args.seq,
                           decode_tokens=args.decode_tokens,
                           damping=args.damping, lr=args.lr, burst=args.burst,
-                          seed=args.seed, on_round=on_round,
+                          seed=args.seed, tenants=args.tenants,
+                          on_round=on_round,
                           log=lambda line: print(line, flush=True))
         s = server.metrics.summary()
         st = server.stats
@@ -329,6 +349,15 @@ def serve_main(argv=None):
               f"(drift tol now "
               f"{float(server.adaptation.effective_drift_tol(dstate)):.3g}, "
               f"λ now {float(dstate.lam):.3g})")
+        if args.tenants and server.tenants is not None:
+            p = server.tenants.packing_stats()
+            budget = "" if p["budget_bytes"] is None \
+                else f" / {p['budget_bytes']} budget"
+            print(f"tenants: {p['tenants']} seen, {p['resident']} resident "
+                  f"({p['resident_bytes']} B{budget}), "
+                  f"{p['evictions']} evictions, {p['activations']} "
+                  f"activations, {p['factor_hits']} factor hits / "
+                  f"{p['materializations']} builds; hot {p['hot']}")
         rounds = out["rounds"]
         if args.ckpt_every and rounds:
             checkpoint(rounds)
@@ -345,6 +374,8 @@ def serve_main(argv=None):
         _finish_obs(args, registry.snapshot(), tracer=tracer, port=port,
                     health_report=health.report())
     finally:
+        if profile is not None:
+            profile.stop()      # a no-op unless the run raised
         for srv in endpoints:
             srv.shutdown()
             srv.server_close()

@@ -18,6 +18,14 @@ server folds adaptation rows (``OnlineAdaptation``) and lets its
 staleness policy decide on a refresh; per-request wall-clock latencies
 land in ``ServerMetrics``.
 
+With a ``TenantManager`` attached (``tenants=``), ``submit(tenant=...)``
+routes the request through that tenant's rank-r delta: the batcher
+coalesces per-tenant microbatches and ``_serve`` swaps the tenant's
+factor L_t in for the resident L — the same S passes and the same
+``serve_solve`` kernel chain (L is just an argument). A tenant request's
+``rows`` fold into the *tenant's delta*, never the shared window; a
+tenant-less request behaves exactly as before.
+
 The observability hooks are the reference's (``repro_torch.obs``): a
 metrics ``registry`` (latency and queue-wait histograms, stage counters,
 queue and factor gauges), a span ``tracer``, ``profile`` hooks around the
@@ -35,7 +43,8 @@ from typing import Any, List, NamedTuple, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.solvers import CholFactorization, chol_factorize
+from repro_torch.core.solvers import (CholFactorization, chol_factorize,
+                                      real_scalar)
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.serve.adapt import OnlineAdaptation
 from repro_torch.serve.batcher import Microbatch, TokenBudgetBatcher
@@ -169,6 +178,7 @@ class SolveServer:
       jitter: extra diagonal, as elsewhere.
       fused: route cached uniform-λ microbatches (monitoring off) through
         ``kernels.ops.serve_solve``; False forces the compositional solve.
+      tenants: optional ``TenantManager`` — enables ``submit(tenant=)``.
       registry: optional ``repro_torch.obs.MetricsRegistry`` — request
         histograms and counters, queue and factor gauges; propagated to
         the adaptation when it has none.
@@ -187,8 +197,8 @@ class SolveServer:
                  adaptation: Optional[OnlineAdaptation] = None,
                  policy: str = "cached", monitor_drift: bool = True,
                  jitter: float = 0.0, fused: bool = True,
-                 clock=time.perf_counter, registry=None, tracer=None,
-                 profile=None, health=None, recorder=None,
+                 tenants=None, clock=time.perf_counter, registry=None,
+                 tracer=None, profile=None, health=None, recorder=None,
                  metrics_window: int = 4096):
         if policy not in ("cached", "refactorize"):
             raise ValueError(f"policy must be 'cached' or 'refactorize', "
@@ -200,6 +210,7 @@ class SolveServer:
         self.monitor_drift = bool(monitor_drift)
         self.jitter = float(jitter)
         self.fused = bool(fused)
+        self.tenants = tenants
         self.clock = clock
         self.registry = registry
         self.tracer = tracer
@@ -208,6 +219,9 @@ class SolveServer:
         self.recorder = recorder
         self.metrics = ServerMetrics(window=metrics_window,
                                      registry=registry, prefix="serve")
+        if registry is not None and tenants is not None \
+                and tenants.registry is None:
+            tenants.registry = registry
         if adaptation is not None:
             if registry is not None and adaptation.registry is None:
                 adaptation.registry = registry
@@ -215,12 +229,18 @@ class SolveServer:
                 adaptation.health = health
 
     def submit(self, v, *, damping: Optional[float] = None, tokens: int = 1,
-               rows=None, payload=None, trace: Optional[str] = None) -> int:
+               rows=None, payload=None, tenant: Optional[str] = None,
+               trace: Optional[str] = None) -> int:
         """Enqueue one request; returns its uid. ``damping=None`` means the
-        resident λ₀ (the fast path). ``trace`` tags the request's spans."""
+        resident λ₀ (the fast path). ``tenant`` solves against (and folds
+        ``rows`` into) that tenant's delta — needs ``tenants=``.
+        ``trace`` tags the request's spans."""
+        if tenant is not None and self.tenants is None:
+            raise RuntimeError("tenant= requires a TenantManager "
+                               "(SolveServer(tenants=...))")
         lam = self.state.lam0 if damping is None else float(damping)
         req = self.batcher.submit(v, damping=lam, tokens=tokens, rows=rows,
-                                  payload=payload, trace=trace)
+                                  payload=payload, tenant=tenant, trace=trace)
         req.t_submit = self.clock()
         if self.registry is not None:
             qs = self.batcher.queue_stats(req.t_submit)
@@ -230,7 +250,7 @@ class SolveServer:
         return req.uid
 
     def solve_one(self, v, *, damping: Optional[float] = None,
-                  tokens: int = 1, rows=None):
+                  tokens: int = 1, rows=None, tenant: Optional[str] = None):
         """Submit + flush a single request and return its x. Only valid on
         an empty queue (a flush would also solve pending requests whose
         results this method cannot hand back)."""
@@ -238,7 +258,8 @@ class SolveServer:
             raise RuntimeError(
                 f"solve_one with {len(self.batcher)} request(s) pending "
                 "would drop their results; use submit() + flush()")
-        uid = self.submit(v, damping=damping, tokens=tokens, rows=rows)
+        uid = self.submit(v, damping=damping, tokens=tokens, rows=rows,
+                          tenant=tenant)
         (res,) = [r for r in self.flush() if r.uid == uid]
         return res.x
 
@@ -249,10 +270,14 @@ class SolveServer:
         out: List[SolveResult] = []
         for mb in self.batcher.drain():
             out.extend(self._serve(mb))
-            if self.adaptation is not None:
-                for req in mb.requests:
-                    if req.rows is None:
-                        continue
+            for req in mb.requests:
+                if req.rows is None:
+                    continue
+                if mb.tenant is not None:
+                    # tenant-private fine-tuning: fold into the delta,
+                    # never the shared window
+                    self.tenants.fold(self.state, mb.tenant, req.rows)
+                elif self.adaptation is not None:
                     span = self.tracer.span("fold", cat="adapt",
                                             trace=req.trace) \
                         if self.tracer is not None \
@@ -260,6 +285,7 @@ class SolveServer:
                     with span:
                         self.state = self.adaptation.fold(self.state,
                                                           req.rows)
+            if self.adaptation is not None:
                 self.state, refreshed = self.adaptation.maybe_refresh(
                     self.state, damping_state=damping_state)
                 if refreshed and self.tracer is not None:
@@ -282,18 +308,66 @@ class SolveServer:
         reg.gauge("curvature.last_drift_residual").set(
             self.state.stats.last_residual)
 
+    def _serve_tenant(self, mb: Microbatch):
+        """Solve one tenant microbatch: the same coalesced solve with the
+        tenant's factor L_t swapped in for the resident L (the S passes —
+        and on the card the ``serve_solve`` kernels — only ever see the
+        shared window). Drift monitoring is skipped: the residual check is
+        defined against the base system, not the tenant's reweighted one.
+        A λ away from λ₀ (compared exactly, λ₀ being rounded to the
+        window's dtype) gets its own L_t; the solve takes λ rounded to
+        that dtype, as the reference's ``jnp.asarray(lam, lam0.dtype)``."""
+        st = self.state
+        lam0 = st.lam0
+        lams = sorted({r.damping for r in mb.requests})
+        blocked = isinstance(mb.V, (tuple, list))
+
+        def solve_at(lam: float, V, dampings):
+            L_t = self.tenants.factor(
+                st, mb.tenant, lam=None if lam == lam0 else lam)
+            x, _ = _coalesced_solve(
+                st.S, st.W, L_t, real_scalar(lam, st.W.dtype), V, dampings,
+                mode=serve_mode(st), jitter=self.jitter, uniform=True,
+                monitor=False, refactorize=False, fused=self.fused)
+            return x
+
+        if len(lams) == 1:
+            return solve_at(lams[0], mb.V, mb.dampings)
+        # mixed λ within one tenant: L_t must be rebuilt per λ anyway, so
+        # solve per-unique-λ column groups and reassemble
+        cols: dict = {}
+        for lam in lams:
+            idx = [j for j, r in enumerate(mb.requests) if r.damping == lam]
+            Vg = tuple(vb[:, idx] for vb in mb.V) if blocked \
+                else mb.V[:, idx]
+            lg = torch.full((len(idx),), lam, dtype=torch.float32)
+            xg = solve_at(lam, Vg, lg)
+            for a, j in enumerate(idx):
+                cols[j] = tuple(xb[:, a] for xb in xg) if blocked \
+                    else xg[:, a]
+        if blocked:
+            return tuple(
+                torch.stack([cols[j][b] for j in range(mb.k)], dim=1)
+                for b in range(len(mb.V)))
+        return torch.stack([cols[j] for j in range(mb.k)], dim=1)
+
     def _serve(self, mb: Microbatch) -> List[SolveResult]:
         st = self.state
         t_start = self.clock()
-        uniform = all(r.damping == st.lam0 for r in mb.requests)
         step = self.profile.step(step=self.metrics.served) \
             if self.profile is not None else contextlib.nullcontext()
         with step:
-            x, resid = _coalesced_solve(
-                st.S, st.W, st.L, st.lam0, mb.V, mb.dampings,
-                mode=serve_mode(st), jitter=self.jitter, uniform=uniform,
-                monitor=self.monitor_drift and self.policy == "cached",
-                refactorize=self.policy == "refactorize", fused=self.fused)
+            if mb.tenant is not None:
+                x, resid = self._serve_tenant(mb), None
+            else:
+                uniform = all(r.damping == st.lam0 for r in mb.requests)
+                x, resid = _coalesced_solve(
+                    st.S, st.W, st.L, st.lam0, mb.V, mb.dampings,
+                    mode=serve_mode(st), jitter=self.jitter,
+                    uniform=uniform,
+                    monitor=self.monitor_drift and self.policy == "cached",
+                    refactorize=self.policy == "refactorize",
+                    fused=self.fused)
             _wait(x)
         t_done = self.clock()
 
@@ -316,7 +390,7 @@ class SolveServer:
                 "device_solve", cat="solve", ts_us=epoch_done_us - solve_us,
                 dur_us=solve_us,
                 args={"k": mb.k, "uids": [r.uid for r in mb.requests],
-                      "tenant": None})
+                      "tenant": mb.tenant})
 
         results = []
         for j, req in enumerate(mb.requests):
@@ -328,7 +402,8 @@ class SolveServer:
                                 queue_s=queue_s)
             if self.recorder is not None:
                 self.recorder.record_request(
-                    req.uid, damping=req.damping, tokens=req.tokens,
+                    req.uid, tenant=mb.tenant, damping=req.damping,
+                    tokens=req.tokens,
                     k_rows=0 if req.rows is None else _rows_k(req.rows),
                     latency_s=t_done - req.t_submit, residual=resid)
             if self.tracer is not None and queue_s is not None:

@@ -30,6 +30,7 @@ def test_port_imports_no_jax_and_no_repro():
                      "optim.adamw", "optim.schedules", "serve.server",
                      "kernels.cholupdate", "curvature.streaming",
                      "curvature.cache", "curvature.audit", "tenants.delta",
+                     "tenants.manager",
                      "kernels.flash_attention", "models", "models.config",
                      "models.layers", "models.lm", "models.api", "configs",
                      "configs.shapes", "configs.llama32_3b",

@@ -8,6 +8,8 @@ fp32 SMOKE model, JAX params carried across as numpy arrays. Tolerances
 (max-abs over max-abs): 1e-4 for losses, scores, logits and the updated
 params (fp32 sums in another order through a two-layer trunk); the solve
 x = (v − Sᵀw)/λ at λ = 1e-2 cancels about two digits of v, so 1e-3."""
+import inspect
+
 import numpy as np
 import pytest
 import torch
@@ -15,6 +17,7 @@ import torch
 from _torch_parity import rel
 from repro_torch import configs as tconfigs
 from repro_torch.core.pytree import params_to_arrays
+from repro_torch.launch import trainer as trainer_mod
 from repro_torch.launch.trainer import build_server
 from repro_torch.obs import FlightRecorder, HealthMonitor, MetricsRegistry
 from repro_torch.serve import OnlineAdaptation, SolveServer, init_serve_state
@@ -118,12 +121,18 @@ def test_cli_serves_on_the_cpu(capsys, tmp_path):
 
 
 # the cases keep the ids they had before the checkpoint and observability
-# flags left this list
+# flags left this list; --tenants (flag3) is ported (A5) and checked at
+# the parser: it parses and asks for no later slice
 @pytest.mark.parametrize("flag", [
     ["--fleet", "2"], ["--async"], ["--mesh", "1d"], ["--tenants", "4"],
     ["--mesh-shape", "1,2"], ["--no-reconcile"]],
     ids=["flag0", "flag1", "flag2", "flag3", "flag12", "flag13"])
 def test_later_flags_raise(flag):
+    if flag[0] == "--tenants":
+        args = _parser().parse_args(flag)
+        assert args.tenants == 4
+        assert not any(asked for asked, _ in _later_flags(args).values())
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
         serve_main(["--device", "cpu"] + flag)
 
@@ -144,6 +153,12 @@ def test_ported_serve_flags_are_not_refused(flag):
 @pytest.mark.parametrize("option", [
     {"layout": "1d"}, {"async_": True}, {"tenant_rank": 2}])
 def test_later_server_options_raise(option):
+    if "tenant_rank" in option:
+        # ported (A5): an option of build_server that asks for no later
+        # slice (tests/test_torch_tenant_serve.py builds one)
+        assert "tenant_rank" in inspect.signature(build_server).parameters
+        assert not set(option) & set(trainer_mod._LATER)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
         build_server(tconfigs.get_smoke(ARCH), window=4, seq=8,
                      device="cpu", **option)

@@ -19,7 +19,7 @@
   the cross, apply and fold passes' tolerance in
   ``tests/test_torch_kernels.py`` (fp32 sums in another order);
 * the serving CLI's reference flags ``--ckpt-dir``, ``--tenant-rank`` and
-  ``--tenant-budget-mb``: parsed, refused only away from their defaults;
+  ``--tenant-budget-mb``: parsed, none of them refused (all ported);
 
 and, on the card only (``cuda``, skipped elsewhere), the passes over
 unaligned windows against their plain twins, the kernels each call
@@ -37,7 +37,7 @@ from repro_torch.kernels.serve_solve import (ROUTES, apply_split,
                                              cross_split, cross_tensor_cores,
                                              cross_tile, kernels_launched,
                                              stream_route)
-from repro_torch.serve.main import _later_flags, _parser, serve_main
+from repro_torch.serve.main import _later_flags, _parser
 
 try:
     import jax.numpy as jnp
@@ -217,16 +217,15 @@ def test_routes_reset_and_plain_route_uncounted():
                                   ["--tenant-rank", "2"],
                                   ["--tenant-budget-mb", "64"]])
 def test_reference_serve_flags_raise_away_from_defaults(flag):
-    """The reference CLI's checkpoint and tenant flags parse. A tenant
-    flag away from the reference's default asks for a later slice; the
-    checkpoint directory is ported, and any value of it asks for none."""
-    if flag[0] == "--ckpt-dir":
-        args = _parser().parse_args(flag)
-        assert args.ckpt_dir == "ck"
-        assert not any(asked for asked, _ in _later_flags(args).values())
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        serve_main(["--device", "cpu"] + flag)
+    """The reference CLI's checkpoint and tenant flags parse. The
+    checkpoint directory and the tenant flags are ported (the tenants
+    with ROADMAP A5), so any value of them asks for no later slice."""
+    args = _parser().parse_args(flag)
+    dest = flag[0].lstrip("-").replace("-", "_")
+    assert str(getattr(args, dest)) == {"--ckpt-dir": "ck",
+                                        "--tenant-rank": "2",
+                                        "--tenant-budget-mb": "64.0"}[flag[0]]
+    assert not any(asked for asked, _ in _later_flags(args).values())
 
 
 def test_reference_serve_flags_at_their_defaults_are_not_refused():
