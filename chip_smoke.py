@@ -116,6 +116,17 @@ Phases, each printing its own lines:
    (configs/shapes.py prefill_32k, batch 32 → 1): 28 launches, the
    profile showing the wgmma kernel; layer 0's attention at that shape
    against the plain version;
+14a. LM serving, MoE and Mamba2 — (a) mamba2-1.3b at published widths,
+   16 of 48 layers, bf16 weights, an fp32 window (m = 516,805,632), and
+   (b) qwen3-moe-30b-a3b, 1 of 48 layers (128 experts top-8), a bf16
+   window (m = 1,245,976,576), bursts of 1: phase 13's trace and gates
+   each, ``fold_cols`` launched, flash attention once an attention layer
+   a prefill (0 on mamba2); (c) mamba2-1.3b at all 48 layers, fp32:
+   prefill of 1,024 tokens at batch 2 and 16 teacher-forced decode steps
+   against the teacher-forced forward (2e-3), then the bf16 model's
+   prefill of 4,096 tokens and its decode timed; (d) ``serve_main --arch
+   {qwen3-moe-30b-a3b, mamba2-1.3b, jamba-v0.1-52b} --smoke`` on the card
+   and on the CPU, the first nine losses within 1e-3;
 15. profiles of one dense flush (fp32 and bf16 window), one (1024,
    100_000) solve, one NGD step
    (the solve's and the step's must show the wgmma Gram kernel and not
@@ -173,10 +184,12 @@ from repro_torch.kernels.ref import WGMMA_HEAD_DIMS  # noqa: E402
 from repro_torch.kernels.serve_solve import ROUTES as STREAM_ROUTES  # noqa: E402
 from repro_torch.kernels.serve_solve import (  # noqa: E402
     cross_tensor_cores, kernels_launched, stream_route_of, trisolve_columns)
-from repro_torch.launch.train import batch_to, make_prefill  # noqa: E402
+from repro_torch.launch.train import (batch_to, make_prefill,  # noqa: E402
+                                      make_serve_step)
 from repro_torch.launch.trainer import (build_server,  # noqa: E402
                                         build_trainer)
 from repro_torch.models import get_api  # noqa: E402
+from repro_torch.models import lm as model_lm  # noqa: E402
 from repro_torch.models import layers as model_layers  # noqa: E402
 from repro_torch.optim import (NaturalGradient,  # noqa: E402
                                params_from_arrays, per_sample_score_blocks)
@@ -331,6 +344,30 @@ TRAIN_REFRESH, TRAIN_STREAM_LAM, TRAIN_STREAM_EXPECT = 3, 0.1, (2, 4)
 # by v's part off the rows of S (the bf16 roundings of the gradient and
 # of the scores), which x carries as itself/λ (PERF.md §6).
 TRAIN_LOSS_GATE, TRAIN_RES_GATE = 1e-3, 1e-3
+# 14a. LM serving, MoE and Mamba2 (the families of ROADMAP A6's first
+# half) at published widths, cut in depth so that the serving window of
+# n = 8 score rows and a fold's copy of it fit the card; bf16 weights.
+# (arch, layers, window dtype, burst):
+# - mamba2-1.3b, 16 of 48 layers: m = 516,805,632, an fp32 window of
+#   16.54 GB (all 48: 43.0 GB, 86 with the copy);
+# - qwen3-moe-30b-a3b, 1 of 48 layers (128 experts of 2048 × 768): m =
+#   1,245,976,576, a bf16 window (storage only) of 19.94 GB. Bursts of 1:
+#   each pending request holds its fp32 v (4.98 GB) and its rows (4.98 GB),
+#   and a microbatch's V, Sᵀw and x are 4.98 GB a request each, so a
+#   burst of 3 beside the window and its copy would not fit.
+# Phase 13's trace and gates otherwise (LM_* above).
+ZOO_SERVED = (("mamba2-1.3b", 16, None, LM_BURST),
+              ("qwen3-moe-30b-a3b", 1, "bfloat16", 1))
+# mamba2-1.3b at all 48 layers, fp32 (5.38 GB): prefill of a 1,024-token
+# prompt at batch 2, then 16 teacher-forced decode steps against the
+# teacher-forced forward's logits, |a − b| ≤ 2e-3 + 2e-3·|b|
+# (tests/test_archs.py test_decode_matches_forward at full size); then
+# the bf16 model's prefill of a 4,096-token prompt and its decode, timed
+# and printed.
+MAMBA_ARCH, MAMBA_B, MAMBA_PROMPT, MAMBA_STEPS = "mamba2-1.3b", 2, 1024, 16
+MAMBA_DECODE_GATE, MAMBA_TIMED_PROMPT, MAMBA_TIMED_TOKENS = 2e-3, 4096, 32
+# serve_main --smoke per family, on the card and on the CPU
+ZOO_CLI = ("qwen3-moe-30b-a3b", "mamba2-1.3b", "jamba-v0.1-52b")
 
 KERNELS = {
     # name: (source, TPU kernel it replaces)
@@ -361,15 +398,35 @@ KERNELS = {
 }
 
 
+def pieces(a, b, size: int = 1 << 26):
+    """(a, b) in float64 on a's device, whole, or a flat chunk at a time
+    where both hold more than ``size`` elements (a solution of 1.2e9
+    parameters is 10 GB in float64)."""
+    if a.numel() <= size or a.shape != b.shape:
+        yield a.double(), b.to(a.device).double()
+        return
+    a, b = a.reshape(-1), b.reshape(-1)
+    for j in range(0, a.numel(), size):
+        yield a[j:j + size].double(), b[j:j + size].to(a.device).double()
+
+
 def rel(a, b) -> float:
-    a, b = a.double(), b.double()
-    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+    diff, ref = [], []
+    for x, y in pieces(a, b):
+        diff.append((x - y).abs().max())
+        ref.append(y.abs().max())
+    return float(torch.stack(diff).max()
+                 / torch.stack(ref).max().clamp_min(1e-30))
 
 
 def rel2(a, b) -> float:
     """‖a − b‖₂ / ‖b‖₂ in float64."""
-    a, b = a.double(), b.double()
-    return float((a - b).norm() / b.norm().clamp_min(1e-300))
+    diff, ref = [], []
+    for x, y in pieces(a, b):
+        diff.append((x - y).square().sum())
+        ref.append(y.square().sum())
+    return float(torch.stack(diff).sum().sqrt()
+                 / torch.stack(ref).sum().sqrt().clamp_min(1e-300))
 
 
 def phase(title: str) -> None:
@@ -1832,7 +1889,8 @@ def require_launches(label: str, counts: dict, name: str,
     """Raise unless ``name`` launched ``expect`` times (None: at least once)."""
     if (counts[name] == 0) if expect is None else (counts[name] != expect):
         raise AssertionError(f"{label}: {name} launched {counts[name]} "
-                             f"times, expected {expect or 'some'}")
+                             f"times, expected "
+                             f"{'some' if expect is None else expect}")
 
 
 def gram64(S, chunk: int = 1 << 26) -> torch.Tensor:
@@ -1844,11 +1902,43 @@ def gram64(S, chunk: int = 1 << 26) -> torch.Tensor:
     return W
 
 
+def chunked_resolve_err(S, v, lam: float, jitter: float, x,
+                        chunk: int = 1 << 26) -> float:
+    """``plain_resolve_err`` of a low-precision window, whose fp32 copy
+    would not fit beside it: Algorithm 1 in plain PyTorch over column
+    chunks widened to fp32 (W = S·Sᵀ and u = S·v summed, L = chol(W +
+    (λ + jitter)I) on the plain route, w = L⁻ᵀL⁻¹u, x_plain = (v − Sᵀw)/λ
+    chunk by chunk)."""
+    n, m = S.shape
+    W = torch.zeros((n, n), dtype=torch.float32, device=S.device)
+    u = torch.zeros((n,), dtype=torch.float32, device=S.device)
+    for j in range(0, m, chunk):
+        b = S[:, j:j + chunk].float()
+        W += b @ b.T
+        u += b @ v[j:j + chunk].float()
+    eye = torch.eye(n, dtype=torch.float32, device=S.device)
+    with ops.default_mode("ref"):
+        L = plain_cholesky(W + (real_scalar(lam, torch.float32)
+                                + real_scalar(jitter, torch.float32)) * eye)
+    w = torch.linalg.solve_triangular(
+        L.T, torch.linalg.solve_triangular(L, u[:, None], upper=False),
+        upper=True)[:, 0]
+    diff = ref = torch.zeros((), dtype=torch.float32, device=S.device)
+    for j in range(0, m, chunk):
+        xp = (v[j:j + chunk].float() - S[:, j:j + chunk].float().T @ w) / lam
+        diff = torch.maximum(diff, (x[j:j + chunk].float() - xp).abs().max())
+        ref = torch.maximum(ref, xp.abs().max())
+    return float(diff / ref.clamp_min(1e-30))
+
+
 def plain_resolve_err(state, v, lam: float, jitter: float, x) -> float:
     """max |x − x_plain| / max |x_plain|, x_plain being v solved on the
     plain route (``ops.default_mode("ref")``) against a factorization of
     the kernel run's own window at this request, at λ: the same inputs,
-    and neither a kernel nor the folds' maintained W and L in it."""
+    and neither a kernel nor the folds' maintained W and L in it. A bf16
+    window takes ``chunked_resolve_err``."""
+    if state.S.element_size() < 4:
+        return chunked_resolve_err(state.S, v, lam, jitter, x)
     with ops.default_mode("ref"):
         fac = chol_factorize(state.S, lam, mode=serve_mode(state),
                              jitter=jitter)
@@ -1886,26 +1976,37 @@ def same_inputs_check(server, errs: dict, sync):
     return undo
 
 
-def lm_trace(cfg, mode, *, device="cuda", against=None, profile_round=False):
+def attention_layers(cfg) -> int:
+    """Layers with self-attention: the prefill's flash-attention launches
+    a prompt."""
+    return sum(slot.kind == "attn" for slot in cfg.slots) * cfg.repeats
+
+
+def lm_trace(cfg, mode, *, device="cuda", against=None, profile_round=False,
+             window_dtype=None, burst=LM_BURST):
     """Build the server and serve the trace with every kernel wrapper at
     ``mode`` (None: kernels on the card; "ref": the plain versions).
     ``against``: the kernel run's result; each solution x is then held
     to it as it comes. Without ``against`` each x is also held to its v
     re-solved on the plain route against the run's own window
     (``same_inputs_check``).
-    Returns the records, x of each request (on the host, kernel run
-    only), those errors, the launch counts and the server summary."""
+    ``window_dtype``: the window's storage dtype (None: fp32); ``burst``:
+    requests a flush. Returns the records, x of each request (on the
+    host, kernel run only), those errors, the launch counts and the
+    server summary."""
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
     xs, x_err, same_err = {}, {}, {}
     gc.collect()
     if device == "cuda":
         torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
 
     def on_result(rec, res):
         if against is None:
             xs[rec["request"]] = res.x.float().cpu()
         else:
-            x = res.x.float().cpu()
+            # on the card, the kernel run's x brought over a chunk at a time
+            x = res.x.float()
             x_err[rec["request"]] = (rel(x, against["xs"][rec["request"]]),
                                      rel2(x, against["xs"][rec["request"]]))
         if res.x.shape != (m,) or not torch.isfinite(res.x).all():
@@ -1920,7 +2021,7 @@ def lm_trace(cfg, mode, *, device="cuda", against=None, profile_round=False):
             cfg, window=LM_WINDOW, seq=LM_SEQ, damping=LM_LAM0,
             max_tokens=LM_MAX_TOKENS, max_requests=LM_MAX_REQUESTS,
             refresh_every=LM_REFRESH, score_chunk=LM_SCORE_CHUNK, seed=SEED,
-            device=device)
+            window_dtype=window_dtype, device=device)
         sync()
         build_s = time.perf_counter() - t0
         m = server.state.S.shape[1]
@@ -1930,7 +2031,7 @@ def lm_trace(cfg, mode, *, device="cuda", against=None, profile_round=False):
         out = serve_trace(server, h, requests=LM_REQUESTS, window=LM_WINDOW,
                           adapt_examples=LM_ADAPT, seq=LM_SEQ,
                           decode_tokens=LM_NEW, damping=LM_LAM0, lr=LM_LR,
-                          burst=LM_BURST, seed=SEED, keep_logits=True,
+                          burst=burst, seed=SEED, keep_logits=True,
                           on_result=on_result,
                           log=lambda line: print("    " + line, flush=True))
         sync()
@@ -1948,7 +2049,10 @@ def lm_trace(cfg, mode, *, device="cuda", against=None, profile_round=False):
           f"{summary['p50_ms']:.1f} ms, p99 {summary['p99_ms']:.1f} ms, "
           f"{summary['rps']:.2f} req/s; adapted {stats.adapted} rows, "
           f"{stats.refreshes} refreshes over {stats.microbatches} "
-          f"microbatches; launches "
+          f"microbatches; "
+          + (f"peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
+             if device == "cuda" else "")
+          + "launches "
           + ", ".join(f"{k}={v}" for k, v in counts.items() if v), flush=True)
     recs = out["records"]
     for key in ("score_ms", "flush_ms", "apply_ms", "decode_ms"):
@@ -1979,11 +2083,13 @@ def lm_trace(cfg, mode, *, device="cuda", against=None, profile_round=False):
         # beside the profiler
         label = ("one serving round (score pass, solve + fold, update, "
                  f"prefill + {LM_NEW - 1} decode steps)")
-        require_wgmma_attention(label, profile(label, lambda: serve_trace(
+        busy = profile(label, lambda: serve_trace(
             server, h, requests=1, window=LM_WINDOW,
             adapt_examples=LM_ADAPT, seq=LM_SEQ, decode_tokens=LM_NEW,
             damping=LM_LAM0, lr=LM_LR, burst=1, seed=SEED,
-            log=lambda line: None)))
+            log=lambda line: None))
+        if attention_layers(cfg):
+            require_wgmma_attention(label, busy)
     del server, h
     same = {rec["request"]: same_err[rec["uid"]] for rec in recs} \
         if against is None else {}
@@ -1991,14 +2097,16 @@ def lm_trace(cfg, mode, *, device="cuda", against=None, profile_round=False):
             "counts": counts, "summary": summary, "m": m}
 
 
-def token_agreement(k_rec, p_rec) -> str:
+def token_agreement(k_rec, p_rec, vocab: int) -> str:
     """'equal', or the step of the first flip and the two runs' top-2
-    margins there; raises if a margin is wider than twice the logit gate."""
+    margins there; raises if a margin is wider than twice the logit gate
+    (relative to the largest |logit| of the real vocabulary: the padded
+    slots hold NEG_INF)."""
     if k_rec["tokens"] == p_rec["tokens"]:
         return "equal"
     step = next(i for i, (a, b) in enumerate(zip(k_rec["tokens"],
                                                   p_rec["tokens"])) if a != b)
-    tol = LM_LOGIT_GATE * float(p_rec["logits"][step].abs().max())
+    tol = LM_LOGIT_GATE * float(p_rec["logits"][step][:vocab].abs().max())
     a, b = k_rec["tokens"][step], p_rec["tokens"][step]
     margins = (float(k_rec["logits"][step][a] - k_rec["logits"][step][b]),
                float(p_rec["logits"][step][b] - p_rec["logits"][step][a]))
@@ -2008,17 +2116,21 @@ def token_agreement(k_rec, p_rec) -> str:
     return f"flip at step {step}, margins {margins[0]:.3g}/{margins[1]:.3g}"
 
 
-def lm_serving_path(cfg, device="cuda") -> dict:
+def lm_serving_path(cfg, device="cuda", window_dtype=None,
+                    burst=LM_BURST) -> dict:
     """The trace on the kernels, then on the plain versions; gates losses,
-    each x, the first prefill's last-position logits and the tokens."""
-    kern = lm_trace(cfg, None, device=device, profile_round=device == "cuda")
+    each x, the first prefill's last-position logits and the tokens. The
+    prefills launch flash attention once an attention layer."""
+    kern = lm_trace(cfg, None, device=device, profile_round=device == "cuda",
+                    window_dtype=window_dtype, burst=burst)
     require_launches("LM serving", kern["counts"], "flash_attention",
-                     cfg.n_layers * LM_REQUESTS)
+                     attention_layers(cfg) * LM_REQUESTS)
     require_launches("LM serving", kern["counts"], "fold_cols")
     gc.collect()
     if device == "cuda":
         torch.cuda.empty_cache()
-    plain = lm_trace(cfg, "ref", device=device, against=kern)
+    plain = lm_trace(cfg, "ref", device=device, against=kern,
+                     window_dtype=window_dtype, burst=burst)
     require_launches("LM serving, plain route", plain["counts"],
                      "flash_attention", 0)
     by_req = {rec["request"]: rec for rec in plain["records"]}
@@ -2032,10 +2144,10 @@ def lm_serving_path(cfg, device="cuda") -> dict:
         print(f"  request {rec['request']}: loss {rec['loss']:.5f} (plain "
               f"{p_rec['loss']:.5f}), x vs plain {x_max:.2e} max-abs, "
               f"{x_l2:.2e} in 2-norm"
-              f"{'' if rec['request'] < LM_BURST else ' (inputs differ)'}, "
+              f"{'' if rec['request'] < burst else ' (inputs differ)'}, "
               f"x vs its v re-solved on the plain route against the kernel "
               f"run's window {same:.2e} (gate {LM_X_GATE:g}), tokens "
-              f"{token_agreement(rec, p_rec)}",
+              f"{token_agreement(rec, p_rec, cfg.vocab)}",
               flush=True)
         if not np.isfinite(rec["loss"]) or not loss_err < LM_LOSS_GATE:
             raise AssertionError(f"request {rec['request']}: loss "
@@ -2043,9 +2155,10 @@ def lm_serving_path(cfg, device="cuda") -> dict:
         if not same < LM_X_GATE:
             raise AssertionError(f"request {rec['request']}: x {same:.3e} "
                                  "from the plain route on the same inputs")
-    worst_x = max(plain["x_err"][r][0] for r in range(LM_BURST))
-    first_k, first_p = kern["records"][0]["logits"][0], \
-        plain["records"][0]["logits"][0]
+    worst_x = max(plain["x_err"][r][0] for r in range(burst))
+    # over the real vocabulary: the padded slots hold NEG_INF
+    first_k, first_p = kern["records"][0]["logits"][0][:cfg.vocab], \
+        plain["records"][0]["logits"][0][:cfg.vocab]
     logit_err = rel(first_k, first_p)
     print(f"  kernels vs plain route: worst loss {worst_loss:.2e} (gate "
           f"{LM_LOSS_GATE:g}), worst x of the first burst {worst_x:.2e} "
@@ -2479,6 +2592,174 @@ def long_prefill(cfg, T, device="cuda") -> dict:
         require_wgmma_attention(label, profile(
             label, lambda: prefill(params, {"tokens": tokens})))
     return {"counts": counts, "ms": ms}
+
+
+# ---------------------------------------------------------------------------
+# 14a. LM serving, MoE and Mamba2 (qwen3-moe, mamba2, jamba)
+# ---------------------------------------------------------------------------
+
+def zoo_serving_path(device="cuda") -> dict:
+    """Phase 13's trace and gates (``lm_serving_path``) on each cell of
+    ZOO_SERVED. Returns the kernel run's launches by cell."""
+    out = {}
+    for arch, layers, wdtype, burst in ZOO_SERVED:
+        cfg = configs.get_config(arch).scaled(n_layers=layers)
+        t0 = time.perf_counter()
+        print(f"  {arch}: {layers} of {configs.get_config(arch).n_layers} "
+              f"layers at published widths, {cfg.dtype} weights, "
+              f"{wdtype or 'float32'} window, burst {burst}, "
+              f"{attention_layers(cfg)} attention layers", flush=True)
+        out[arch] = lm_serving_path(cfg, device=device, window_dtype=wdtype,
+                                    burst=burst)["counts"]
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        print(f"  {arch}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+def mamba_decode_path(device="cuda") -> dict:
+    """mamba2-1.3b at all 48 layers: the fp32 model's prefill of a
+    MAMBA_PROMPT-token prompt (batch MAMBA_B), then MAMBA_STEPS
+    teacher-forced decode steps through the serve front's steps, each
+    step's logits held to the teacher-forced forward's (MAMBA_DECODE_GATE,
+    rtol = atol); then the bf16 model's prefill of MAMBA_TIMED_PROMPT
+    tokens and MAMBA_TIMED_TOKENS greedy decode steps, timed."""
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    cfg = configs.get_config(MAMBA_ARCH).scaled(dtype="float32")
+    api = get_api(cfg)
+    gen = torch.Generator().manual_seed(SEED + 17)
+    t0 = time.perf_counter()
+    params = api.init_params(gen, device)
+    T = MAMBA_PROMPT + MAMBA_STEPS
+    tokens = torch.randint(3, cfg.vocab, (MAMBA_B, T), generator=gen).to(device)
+    sync()
+    init_s = time.perf_counter() - t0
+    prefill, step = make_prefill(api), make_serve_step(api)
+    V = cfg.vocab
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        full, _ = model_lm.forward(params, cfg, tokens)
+        sync()
+        fwd_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        logits, cache, idx = prefill(params, {"tokens": tokens[:, :MAMBA_PROMPT],
+                                              "max_len": T})
+        sync()
+        pre_ms = (time.perf_counter() - t0) * 1e3
+        errs = [(logits[:, -1, :V], full[:, MAMBA_PROMPT - 1, :V])]
+        t0 = time.perf_counter()
+        for t in range(MAMBA_PROMPT, T):
+            _, cache, last = step(params, cache, t, tokens[:, t:t + 1])
+            errs.append((last[:, :V], full[:, t, :V]))
+        sync()
+        dec_ms = (time.perf_counter() - t0) * 1e3 / MAMBA_STEPS
+    counts = ops.launch_counts()
+    tol = MAMBA_DECODE_GATE
+    worst = max(float(((a - b).abs() / (tol + tol * b.abs())).max())
+                for a, b in errs)
+    max_abs = max(float((a - b).abs().max()) for a, b in errs)
+    finite = all(bool(torch.isfinite(a).all()) for a, _ in errs)
+    state = sum(t.numel() * t.element_size() for c in cache
+                for t in c.values())
+    print(f"  {cfg.n_layers} layers, fp32, {sum(t.numel() for t in leaves(params)) / 1e9:.3f} G "
+          f"params drawn in {init_s:.1f} s; forward of ({MAMBA_B}, {T}) "
+          f"{fwd_ms:.1f} ms, prefill of ({MAMBA_B}, {MAMBA_PROMPT}) "
+          f"{pre_ms:.1f} ms (next index {idx}), decode {dec_ms:.2f} ms a "
+          f"step; decode state {state} B; the prefill's last logits and "
+          f"{MAMBA_STEPS} decode steps vs the teacher-forced forward: "
+          f"max-abs {max_abs:.2e}, worst |a − b| / ({tol:g} + {tol:g}|b|) "
+          f"{worst:.3f} (gate 1); launches "
+          + (", ".join(f"{k}={v}" for k, v in counts.items() if v)
+             or "none (no attention layer, no solve)"), flush=True)
+    if not (finite and worst <= 1.0 and idx == MAMBA_PROMPT):
+        raise AssertionError(f"mamba2 decode: {worst:.3f} of the gate from "
+                             "the teacher-forced forward")
+    del full, cache, logits, errs, params
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    api16 = get_api(configs.get_config(MAMBA_ARCH))           # bf16
+    params = api16.init_params(torch.Generator().manual_seed(SEED + 17),
+                               device)
+    prompt = torch.randint(3, cfg.vocab, (1, MAMBA_TIMED_PROMPT),
+                           generator=gen).to(device)
+    prefill, step = make_prefill(api16), make_serve_step(api16)
+    n_new = MAMBA_TIMED_TOKENS
+    with torch.no_grad():
+        pre = []
+        for _ in range(3):                      # a warm-up, then two timed
+            t0 = time.perf_counter()
+            logits, cache, idx = prefill(params, {
+                "tokens": prompt, "max_len": MAMBA_TIMED_PROMPT + n_new + 2})
+            sync()
+            pre.append((time.perf_counter() - t0) * 1e3)
+        nxt = torch.argmax(logits[:, -1], -1).to(torch.int32)
+        for t in range(2):                      # warm-up steps
+            nxt, cache, _ = step(params, cache, idx + t, nxt[:, None])
+        sync()
+        t0 = time.perf_counter()
+        for t in range(2, 2 + n_new):
+            nxt, cache, last = step(params, cache, idx + t, nxt[:, None])
+        sync()
+        dec = (time.perf_counter() - t0) * 1e3 / n_new
+    if not torch.isfinite(last).all():
+        raise AssertionError("mamba2 bf16 decode: logits not finite")
+    print(f"  bf16 model: prefill of (1, {MAMBA_TIMED_PROMPT}) "
+          f"{pre[1]:.1f} / {pre[2]:.1f} ms (warm-up {pre[0]:.1f}), greedy "
+          f"decode {dec:.3f} ms a token over {n_new} tokens", flush=True)
+    del params, cache
+    return {"counts": counts, "decode_ms": dec_ms}
+
+
+def zoo_cli_path() -> dict:
+    """``serve_main --arch A --smoke`` for each family of ZOO_CLI on the
+    card and on the CPU at the reference's defaults (12 requests, window
+    8, seq 16, burst 3; checkpoints into a temporary directory): the first
+    nine requests' losses within LM_LOSS_GATE of the CPU's (from the tenth
+    on the CLI's updates have blown the loss up, as in ``cli_smoke``), the
+    rest printed. Returns the card runs' launches, summed."""
+    tmp = tempfile.mkdtemp(prefix="zoo_cli_")
+    total = {}
+    try:
+        for arch in ZOO_CLI:
+            runs = {}
+            for dev in ("cuda", "cpu"):
+                ops.reset_launch_counts()
+                server, losses, _, out, wall, _ = run_cli(
+                    ["--arch", arch, "--smoke", "--device", dev,
+                     "--ckpt-dir", os.path.join(tmp, f"{arch}_{dev}")])
+                runs[dev] = {"losses": losses, "wall": wall,
+                             "adapted": server.stats.adapted,
+                             "verdict": cli_line(out, "health: ").split()[1],
+                             "counts": ops.launch_counts()}
+            card, cpu = runs["cuda"], runs["cpu"]
+            for k, v in card["counts"].items():
+                total[k] = total.get(k, 0) + v
+            errs = [abs(a - b) / abs(b) for a, b in zip(card["losses"],
+                                                        cpu["losses"])]
+            gated = 3 * 3
+            worst = max(errs[:gated])
+            print(f"  {arch} --smoke: card {card['wall']:.1f} s, CPU "
+                  f"{cpu['wall']:.1f} s; losses on the card "
+                  + " ".join(f"{v:.6g}" for v in card["losses"])
+                  + "; vs the CPU per request "
+                  + " ".join(f"{v:.1e}" for v in errs)
+                  + f"; worst of the first {gated} {worst:.2e} (gate "
+                  f"{LM_LOSS_GATE:g}); adapted {card['adapted']} / "
+                  f"{cpu['adapted']} rows; verdicts {card['verdict']} / "
+                  f"{cpu['verdict']}; card launches "
+                  + ", ".join(f"{k}={v}" for k, v in card["counts"].items()
+                              if v), flush=True)
+            if len(card["losses"]) != 12 or not worst < LM_LOSS_GATE:
+                raise AssertionError(f"{arch} --smoke: the card's losses "
+                                     f"{worst:.3e} from the CPU's")
+            require_launches(f"{arch} --smoke", card["counts"], "fold_cols")
+        return total
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 # ---------------------------------------------------------------------------
@@ -3123,9 +3404,36 @@ def main() -> int:
                                          LONG_T)["counts"]
     gc.collect()
     torch.cuda.empty_cache()
+    t_zoo = time.perf_counter()
+    phase("LM serving, MoE and Mamba2: "
+          + "; ".join(f"{a}, {n} layers, {w or 'float32'} window, burst {b}"
+                      for a, n, w, b in ZOO_SERVED)
+          + f"; phase 13's trace otherwise (window {LM_WINDOW}, seq "
+          f"{LM_SEQ}, {LM_REQUESTS} requests)")
+    for arch, counts in zoo_serving_path().items():
+        paths[f"LM serving, {arch}"] = counts
+    t0 = time.perf_counter()
+    phase(f"LM serving, MoE and Mamba2: {MAMBA_ARCH}, all 48 layers, "
+          f"prefill of {MAMBA_PROMPT} tokens at batch {MAMBA_B} + "
+          f"{MAMBA_STEPS} teacher-forced decode steps (fp32), then bf16 "
+          f"prefill of {MAMBA_TIMED_PROMPT} tokens and decode timed")
+    paths["mamba2 prefill + decode"] = mamba_decode_path()["counts"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    phase("LM serving, MoE and Mamba2: python -m repro_torch.serve --arch "
+          f"{{{', '.join(ZOO_CLI)}}} --smoke on the card and on the CPU")
+    paths["LM serving CLI, zoo"] = zoo_cli_path()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  {time.perf_counter() - t0:.1f} s; the MoE and Mamba2 phase "
+          f"{time.perf_counter() - t_zoo:.1f} s", flush=True)
     for label in ("tenant serving", "LM serving", "LM serving CLI",
                   "LM serving CLI, tenants", "LM NGD trainer",
-                  "long prefill"):
+                  "long prefill") + tuple(
+                      f"LM serving, {a}" for a, _, _, _ in ZOO_SERVED) + (
+                      "mamba2 prefill + decode", "LM serving CLI, zoo"):
         print(f"  launches on {label}: " + ", ".join(
             f"{k}={v}" for k, v in paths[label].items() if v))
 

@@ -110,18 +110,40 @@ def tri_solve(L: torch.Tensor, u: torch.Tensor, mode: str) -> torch.Tensor:
     return w[:, 0] if vec else w
 
 
+# A low-precision window is widened to its accumulation dtype this many
+# columns at a time: bf16 is storage only, and a whole fp32 copy (twice
+# the window's bytes) need not fit beside it. Narrower windows, and
+# windows already in the accumulation dtype, take one product as before.
+UPCAST_CHUNK = 1 << 26
+
+
+def _upcast_chunks(S, acc):
+    """Column ranges of S to widen one at a time: [(0, m)] unless S is
+    narrower than ``acc`` and wider than ``UPCAST_CHUNK``."""
+    m = S.shape[-1]
+    step = m if S.dtype == acc or m <= UPCAST_CHUNK else UPCAST_CHUNK
+    return [(j, min(j + step, m)) for j in range(0, m, step)]
+
+
 def _op_matvec(S, v) -> torch.Tensor:
     if is_blocked(S):
         return S.matvec(v)
     acc = acc_dtype(S.dtype, v.dtype)
-    return S.to(acc) @ v.to(acc)
+    out = None
+    for a, b in _upcast_chunks(S, acc):
+        part = S[:, a:b].to(acc) @ v[a:b].to(acc)
+        out = part if out is None else out + part
+    return out
 
 
 def _op_rmatvec(S, w, *, mode: str):
     if is_blocked(S):
         return S.rmatvec(w, mode=mode)
     acc = acc_dtype(S.dtype, w.dtype)
-    return ct(S.to(acc), mode) @ w.to(acc)
+    w = w.to(acc)
+    parts = [ct(S[:, a:b].to(acc), mode) @ w
+             for a, b in _upcast_chunks(S, acc)]
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
 
 
 def center_scores(O: torch.Tensor, *, weights: Optional[torch.Tensor] = None

@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.operator import acc_dtype
-from repro_torch.core.solvers import cholesky
+from repro_torch.core.solvers import _upcast_chunks, cholesky
 from repro_torch.curvature.update import chol_downdate, chol_update
 
 __all__ = ["gram_ref", "gram_sv_ref", "gram_tf32_ref", "tf32_split",
@@ -228,10 +228,16 @@ def serve_solve_ref(S: torch.Tensor, L: torch.Tensor, V: torch.Tensor,
 
 
 def fold_cols_ref(S: torch.Tensor, rows: torch.Tensor):
-    """(cols, corner) = (S·rows†, rows·rows†) — the fold cross columns."""
+    """(cols, corner) = (S·rows†, rows·rows†) — the fold cross columns. A
+    low-precision window is widened a column chunk at a time
+    (``core.solvers.UPCAST_CHUNK``)."""
     tgt = _acc(S, rows)
-    r = rows.to(tgt)
-    return S.to(tgt) @ _ct(r), r @ _ct(r)
+    cols = corner = None
+    for a, b in _upcast_chunks(S, tgt):
+        s, r = S[:, a:b].to(tgt), rows[:, a:b].to(tgt)
+        c, k = s @ _ct(r), r @ _ct(r)
+        cols, corner = (c, k) if cols is None else (cols + c, corner + k)
+    return cols, corner
 
 
 def _fma(x: torch.Tensor, y: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:

@@ -21,7 +21,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.pytree import leaves, tree_map
-from repro_torch.optim.scores import (flatten_like, per_sample_score_blocks,
+from repro_torch.optim.scores import (flatten_like, grad_and_value,
+                                      per_sample_score_blocks,
                                       per_sample_scores)
 from repro_torch.roadmap import queue
 
@@ -55,7 +56,7 @@ def make_train_step(api, optimizer, *, microbatches: int = 1):
     Python loop where the reference scans: fp32 gradient and loss sums,
     each divided by the count at the end, as the scan does.
     """
-    grad_and_loss = torch.func.grad_and_value(api.loss, has_aux=True)
+    grad_and_loss = grad_and_value(api.loss, has_aux=True)
 
     def train_step(params, opt_state, batch):
         batch = batch_to(batch, _device(params))
@@ -102,7 +103,7 @@ def make_ngd_train_step(api, optimizer, mesh=None, *, score_chunk=None,
         raise NotImplementedError(
             "make_ngd_train_step(mesh=, score_sharding=, flat_scores=) lay "
             f"S over a mesh; they come with {queue('sharded')}")
-    grad_and_loss = torch.func.grad_and_value(api.loss, has_aux=True)
+    grad_and_loss = grad_and_value(api.loss, has_aux=True)
     scores = per_sample_score_blocks if blocked else per_sample_scores
 
     def train_step(params, opt_state, batch):
@@ -135,7 +136,7 @@ def make_score_grads(api, *, score_chunk=None, score_dtype=None, scale=None):
     ``scale``: row normalization override — pass 1/√n_window so request
     rows can be folded into an n_window-sample curvature window.
     """
-    grad_and_loss = torch.func.grad_and_value(api.loss, has_aux=True)
+    grad_and_loss = grad_and_value(api.loss, has_aux=True)
 
     def score_grads(params, batch):
         batch = batch_to(batch, _device(params))

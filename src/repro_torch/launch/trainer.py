@@ -34,7 +34,7 @@ from repro_torch.launch import train as T
 from repro_torch.launch.supervisor import SupervisorConfig, run_supervised
 from repro_torch.models.api import get_api
 from repro_torch.optim import AdamW, NaturalGradient, warmup_cosine
-from repro_torch.optim.scores import flatten_like
+from repro_torch.optim.scores import flatten_like, per_sample_scores
 from repro_torch.roadmap import queue
 
 __all__ = ["ServeHandles", "build_server", "build_trainer", "train_main"]
@@ -197,7 +197,12 @@ class ServeHandles:
 def _build_serve_front(cfg, *, window: int, seq: int, score_chunk=None,
                        seed: int = 0, params=None, device=None):
     """The model-side half of serving: api + params + score-grad pass +
-    seeded window S0 (n = ``window`` synthetic examples)."""
+    seeded window S0 (n = ``window`` synthetic examples). S0 is the score
+    rows alone, ``score_chunk`` samples at a time: the mean gradient over
+    the window's batch, which the reference computes beside them and
+    drops, would hold the whole batch's activations for one backward
+    (≈ 1.4 GB a Mamba2 layer for every two 1,024-token examples on an
+    H100: mamba2-1.3b's 16 layers at 8 examples ran out of memory)."""
     dev = resolve_device(device)
     api = get_api(cfg)
     data = SyntheticLM(cfg, batch=window, seq=seq, seed=seed)
@@ -210,7 +215,9 @@ def _build_serve_front(cfg, *, window: int, seq: int, score_chunk=None,
     # exchangeable with the seeded rows
     score_grads = T.make_score_grads(api, score_chunk=score_chunk,
                                      scale=1.0 / np.sqrt(window))
-    _, _, S0 = score_grads(params, data.batch_at(0))
+    S0 = per_sample_scores(api.sample_logp, params,
+                           T.batch_to(data.batch_at(0), dev),
+                           chunk=score_chunk, scale=1.0 / np.sqrt(window))
     handles = ServeHandles(api=api, params=params, data=data,
                            score_grads=score_grads, unravel=unravel)
     return handles, S0

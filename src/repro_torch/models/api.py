@@ -2,11 +2,11 @@
 serving front and the trainer talk to.
 
 ``get_api(cfg)`` returns a ``ModelAPI`` whose members close over the
-config. The decoder-only families with attention slots are ported; the
-encoder-decoder and audio families, and configs with Mamba or MoE slots,
-raise ``NotImplementedError`` until their slices. ``param_specs`` and
-``make_input_specs`` (the reference's dry-run stand-ins) wait with the
-launch tooling.
+config. The decoder-only families are ported: dense, MoE, SSM (Mamba2)
+and hybrid (jamba). The encoder-decoder and audio families, and configs
+with cross-attention slots, raise ``NotImplementedError`` until their
+slice. ``param_specs`` and ``make_input_specs`` (the reference's dry-run
+stand-ins) wait with the launch tooling.
 """
 from __future__ import annotations
 
@@ -38,8 +38,7 @@ def get_api(cfg: ModelConfig) -> ModelAPI:
         raise NotImplementedError(
             f"{cfg.name}: the encoder-decoder trunk (models/encdec.py) comes "
             f"with a later slice of the model zoo ({queue('models')})")
-    later = [s for s in cfg.slots if s.kind == "mamba" or s.moe
-             or s.cross_attn]
+    later = [s for s in cfg.slots if s.cross_attn]
     if later:
         raise NotImplementedError(
             f"{cfg.name}: {later[0]} needs a block a later slice of the "

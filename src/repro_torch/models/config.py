@@ -7,10 +7,13 @@ drivers of ``models.lm`` loop over the repeats in Python (the reference
 scans them with ``lax.scan``).
 
 Every field of the reference is kept, so a configuration reads the same
-in both packages. The sharding and compilation levers (``attn_seq_shard``,
+in both packages. The numeric levers are acted on as the reference acts
+on them: ``attn_bf16`` (bf16 QK/PV operands), ``ssd_factored`` (the
+factored intra-chunk decay) and ``ssd_bf16`` (bf16 SSD operands, fp32
+sums). The sharding and compilation levers (``attn_seq_shard``,
 ``fsdp_gather_weights``, ``moe_*``, ``gather_unembed``, ``ssd_shard``,
-``remat``) do not change values and the port does not act on them;
-``param_dtype`` is a ``torch.dtype``.
+``remat``) do not change values on one device and the port does not
+act on them; ``param_dtype`` is a ``torch.dtype``.
 """
 from __future__ import annotations
 
@@ -93,9 +96,10 @@ class ModelConfig:
     # training (kept for parity; the port does not rematerialize)
     remat: str = "dots"                 # "none" | "dots" | "full"
 
-    # the reference's sharding / perf levers: kept, not acted on
-    ssd_bf16: bool = False
-    ssd_factored: bool = False
+    # the reference's perf levers: the numeric ones acted on (ssd_bf16,
+    # ssd_factored, attn_bf16), the sharding ones kept and inert
+    ssd_bf16: bool = False          # SSD contraction operands in bf16
+    ssd_factored: bool = False      # factor exp(cum_i−cum_j): no Q×Q decay
     moe_shard_constraints: bool = False
     moe_ep_over_data: bool = False
     gather_unembed: bool = False

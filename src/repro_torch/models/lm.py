@@ -1,4 +1,5 @@
-"""Decoder-only LM trunk for attention slots (port of ``repro/models/lm.py``).
+"""Decoder-only LM trunk (port of ``repro/models/lm.py``): attention,
+Mamba2 and MoE slots, so the dense, MoE, SSM and hybrid families.
 
 Parameters are explicit trees: ``{"embed", "final_norm", "blocks"[,
 "head"]}`` where ``blocks`` is a list with one dict per slot of the
@@ -8,7 +9,8 @@ drivers loop over the repeats in Python and index the stacked leaves
 
 * ``run_stack``         — train / eval (the score pass runs it under
   ``torch.func.vmap(grad)``);
-* ``run_stack_prefill`` — also emits the per-layer KV rows;
+* ``run_stack_prefill`` — also emits the per-layer KV rows (a Mamba2
+  slot: its conv and SSM states);
 * ``run_stack_decode``  — one token in, the cache written in place.
 
 Prefill routes a layer's self-attention through the flash-attention
@@ -27,8 +29,8 @@ routes a CPU run as it routes the card's.
 Initialization draws from an explicit CPU ``torch.Generator`` and moves
 each draw to the device asked for, so one seed gives the same weights on
 every device. Shapes, scales and dtypes are the reference's, not its
-bits (``jax.random`` and torch draw different numbers). Mamba, MoE and
-cross-attention slots come with later slices and raise
+bits (``jax.random`` and torch draw different numbers). Cross-attention
+slots (the encoder-decoder trunk) come with a later slice and raise
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -46,8 +48,8 @@ from repro_torch.roadmap import queue
 
 __all__ = ["block_apply", "chunked_ce", "decode_step", "embed_tokens",
            "forward", "init_blocks", "init_cache", "init_params", "init_slot",
-           "lm_loss", "prefill", "run_stack", "run_stack_decode",
-           "run_stack_prefill", "sample_logp", "unembed"]
+           "lm_loss", "mamba_prefill_cache", "prefill", "run_stack",
+           "run_stack_decode", "run_stack_prefill", "sample_logp", "unembed"]
 
 F32 = torch.float32
 
@@ -102,10 +104,14 @@ def _init_attn(gen, cfg, d, device):
 
 
 def _init_ffn(gen, cfg, d, device, *, moe: bool):
-    if moe:
-        raise _later("the MoE FFN (layers.moe_block)")
     pd = cfg.param_dtype
-    if cfg.mlp_type == "gelu":
+    if moe:
+        E, f = cfg.n_experts, cfg.d_ff
+        p = {"router": _dense(gen, (d, E), pd, device),
+             "w_gate": _dense(gen, (E, d, f), pd, device, scale=d ** -0.5),
+             "w_up": _dense(gen, (E, d, f), pd, device, scale=d ** -0.5),
+             "w_down": _dense(gen, (E, f, d), pd, device, scale=f ** -0.5)}
+    elif cfg.mlp_type == "gelu":
         p = {"w_up": _dense(gen, (d, cfg.d_ff), pd, device),
              "w_down": _dense(gen, (cfg.d_ff, d), pd, device)}
     else:
@@ -118,15 +124,40 @@ def _init_ffn(gen, cfg, d, device, *, moe: bool):
     return p
 
 
+def _init_mamba(gen, cfg, d, device):
+    di, nh = cfg.d_inner, cfg.ssm_heads
+    g, ds, K = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_conv
+    conv_ch = di + 2 * g * ds
+    proj_out = 2 * di + 2 * g * ds + nh
+    pd = cfg.param_dtype
+    return {
+        "norm": _norm_p(cfg, d, device),
+        "in_proj": _dense(gen, (d, proj_out), pd, device),
+        "conv_w": _dense(gen, (K, conv_ch), pd, device, scale=0.1),
+        "dt_bias": torch.zeros((nh,), dtype=F32, device=device),
+        "A_log": torch.log(torch.linspace(1.0, 16.0, nh, dtype=F32)
+                           ).to(device),
+        "D": torch.ones((nh,), dtype=F32, device=device),
+        "norm_g": torch.zeros((di,), dtype=pd, device=device),
+        "out_proj": _dense(gen, (di, d), pd, device),
+    }
+
+
 def init_slot(gen: torch.Generator, slot: BlockSlot, cfg: ModelConfig, d,
               device=None):
-    """Params for one slot position (un-stacked)."""
-    if slot.kind == "mamba":
-        raise _later("the Mamba2 block (layers.mamba_block)")
+    """Params for one slot position (un-stacked).
+
+    A pure-SSM slot (mamba2: ``d_ff == 0``, no MoE) has no FFN sublayer:
+    the Mamba2 mixer is the whole block."""
     if slot.cross_attn:
         raise _later("cross-attention (models/encdec.py)")
     device = torch.device("cpu" if device is None else device)
-    p = _init_attn(gen, cfg, d, device)
+    if slot.kind == "mamba":
+        p = _init_mamba(gen, cfg, d, device)
+        if cfg.d_ff == 0 and not slot.moe:
+            return p
+    else:
+        p = _init_attn(gen, cfg, d, device)
     p.update(_init_ffn(gen, cfg, d, device, moe=slot.moe))
     return p
 
@@ -231,30 +262,60 @@ def _self_attn(slot, p, x, cfg, *, positions, mode, cache=None,
 
 
 def _ffn(slot, p, x, cfg):
+    """Returns (out, aux): the MoE's router aux loss, else 0."""
     h = _apply_norm(x, p["ffn_norm"], cfg)
+    aux = 0.0
     if slot.moe:
-        raise _later("the MoE FFN (layers.moe_block)")
-    if cfg.mlp_type == "gelu":
+        out, aux = L.moe_block(h, p, cfg)
+    elif cfg.mlp_type == "gelu":
         out = F.gelu(h @ p["w_up"], approximate="tanh") @ p["w_down"]
     else:
         out = L.swiglu_mlp(h, p)
     if cfg.use_post_norm:
         out = _apply_norm(out, p["ffn_post_norm"], cfg)
-    return out
+    return out, aux
 
 
 def block_apply(slot: BlockSlot, p, x, cfg, *, positions, mode,
                 cache=None, cache_index=None):
-    """One layer. Returns (x, cache_out, aux_loss)."""
-    if slot.kind == "mamba":
-        raise _later("the Mamba2 block (layers.mamba_block)")
+    """One layer. Returns (x, cache_out, aux_loss). A Mamba2 slot's decode
+    writes its new conv and SSM states into ``cache`` in place."""
     if slot.cross_attn:
         raise _later("cross-attention (models/encdec.py)")
-    attn_out, cache_out = _self_attn(slot, p, x, cfg, positions=positions,
-                                     mode=mode, cache=cache,
-                                     cache_index=cache_index)
-    x = x + attn_out
-    return x + _ffn(slot, p, x, cfg), cache_out or {}, 0.0
+    if slot.kind == "mamba":
+        h = _apply_norm(x, p["norm"], cfg)
+        y, new = L.mamba_block(h, p, cfg,
+                               cache=cache if mode == "decode" else None)
+        x = x + y
+        cache_out = {}
+        if mode == "decode":
+            for key in ("conv", "ssm"):
+                cache[key].copy_(new[key])
+            cache_out = cache
+        elif mode == "prefill":
+            cache_out = mamba_prefill_cache(h, p, cfg)
+    else:
+        attn_out, cache_out = _self_attn(
+            slot, p, x, cfg, positions=positions, mode=mode, cache=cache,
+            cache_index=cache_index)
+        x = x + attn_out
+    if "ffn_norm" not in p:          # pure-SSM block: no FFN sublayer
+        return x, cache_out or {}, 0.0
+    ffn_out, aux = _ffn(slot, p, x, cfg)
+    return x + ffn_out, cache_out or {}, aux
+
+
+def mamba_prefill_cache(h, p, cfg):
+    """The conv and SSM final states of a prompt, recomputed for the
+    decode cache: {"conv": (B, K-1, conv_ch), "ssm": (B, nh, ds, hp)} in
+    ``param_dtype``."""
+    K = cfg.ssm_conv
+    _, xBC, dt = L._split_in_proj(h @ p["in_proj"], cfg)
+    conv_state = xBC[:, -(K - 1):, :]
+    xBC_c, _ = L._causal_conv(xBC, p["conv_w"])
+    xh, Bm, Cm, dt, A = L._ssm_inputs(xBC_c, dt, p, cfg)
+    _, hT = L._ssd_inner(xh, dt, A, Bm, Cm, cfg)
+    return {"conv": conv_state, "ssm": hT.to(cfg.param_dtype)}
 
 
 # ---------------------------------------------------------------------------
@@ -280,7 +341,8 @@ def run_stack(blocks, x, cfg, *, positions):
 
 def run_stack_prefill(blocks, x, cfg, *, positions):
     """Emitting cache rows. Returns (x, cache_list, aux): per slot, k and v
-    stacked over the repeats, (R, B, T, KH, hd)."""
+    stacked over the repeats, (R, B, T, KH, hd), or a Mamba2 slot's conv
+    and SSM states, (R, B, K-1, conv_ch) and (R, B, nh, ds, hp)."""
     aux = torch.zeros((), dtype=F32, device=x.device)
     rows = [[] for _ in cfg.slots]
     for r in range(cfg.repeats):
@@ -416,16 +478,24 @@ def lm_loss(params, cfg: ModelConfig, batch):
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device=None):
-    """Zero cache (list per slot of stacked (R, batch, S, KH, hd) k, v)."""
+    """Zero cache: a list per slot of stacked (R, batch, S, KH, hd) k, v,
+    or a Mamba2 slot's (R, batch, K-1, conv_ch) conv and (R, batch, nh,
+    ds, hp) SSM states, all in ``param_dtype``."""
     KH, hd, R = cfg.n_kv_heads, cfg.head_dim, cfg.repeats
+    shapes = {"conv": (R, batch, cfg.ssm_conv - 1,
+                       cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state),
+              "ssm": (R, batch, cfg.ssm_heads, cfg.ssm_state,
+                      cfg.ssm_head_dim)}
     cache = []
     for slot in cfg.slots:
         if slot.kind == "mamba":
-            raise _later("the Mamba2 block's decode cache")
-        S = min(max_len, slot.window) if slot.window else max_len
-        cache.append({key: torch.zeros((R, batch, S, KH, hd),
-                                       dtype=cfg.param_dtype, device=device)
-                      for key in ("k", "v")})
+            keys = ("conv", "ssm")
+        else:
+            S = min(max_len, slot.window) if slot.window else max_len
+            shapes["k"] = shapes["v"] = (R, batch, S, KH, hd)
+            keys = ("k", "v")
+        cache.append({key: torch.zeros(shapes[key], dtype=cfg.param_dtype,
+                                       device=device) for key in keys})
     return cache
 
 
@@ -446,6 +516,9 @@ def prefill(params, cfg: ModelConfig, tokens, *, max_len: int,
 
     cache = []
     for slot, c in zip(cfg.slots, cache_rows):
+        if slot.kind == "mamba":
+            cache.append(c)
+            continue
         S = min(max_len, slot.window) if slot.window else max_len
         k, v = c["k"], c["v"]                   # (R, B, T, KH, hd)
         if T > S:                               # ring layout of last S keys

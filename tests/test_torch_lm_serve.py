@@ -198,7 +198,7 @@ def test_ported_server_options_construct(option, tmp_path):
 
 def test_not_ported_arch_raises_in_the_cli():
     with pytest.raises(NotImplementedError, match="A6"):
-        serve_main(["--arch", "mamba2-1.3b", "--device", "cpu"])
+        serve_main(["--arch", "whisper-base", "--device", "cpu"])
 
 
 def test_entry_point_defaults_to_cuda():

@@ -288,12 +288,18 @@ def test_families_not_ported_raise():
         tconfigs.get_config("gpt-2")
     base = tconfigs.get_smoke("llama3.2-3b")
     for cfg in (base.scaled(family="encdec"), base.scaled(family="audio"),
-                base.scaled(slots=(BlockSlot(kind="mamba"),)),
-                base.scaled(slots=(BlockSlot(moe=True),)),
                 base.scaled(slots=(BlockSlot(cross_attn=True),))):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(NotImplementedError, match="A6"):
             get_api(cfg)
-    with pytest.raises(NotImplementedError):
-        tlm.init_slot(torch.Generator(), BlockSlot(moe=True), base, 8)
+    with pytest.raises(NotImplementedError, match="A6"):
+        tlm.init_slot(torch.Generator(), BlockSlot(cross_attn=True), base, 8)
+    # the MoE and Mamba2 slots are ported: they build and run
+    for slot in (BlockSlot(kind="mamba"), BlockSlot(moe=True)):
+        cfg = base.scaled(slots=(slot,), n_experts=4, top_k=2)
+        api = get_api(cfg)
+        p = api.init_params(torch.Generator().manual_seed(0))
+        logits, aux = tlm.forward(p, cfg, torch.zeros((1, 5), dtype=torch.long))
+        assert torch.isfinite(logits[..., :cfg.vocab]).all()
+        assert (float(aux) > 0.0) == slot.moe
     with pytest.raises(ValueError):
         ModelConfig(n_layers=3, slots=(BlockSlot(), BlockSlot()))
