@@ -127,6 +127,28 @@ Phases, each printing its own lines:
    prefill of 4,096 tokens and its decode timed; (d) ``serve_main --arch
    {qwen3-moe-30b-a3b, mamba2-1.3b, jamba-v0.1-52b} --smoke`` on the card
    and on the CPU, the first nine losses within 1e-3;
+14b. the encoder-decoder trunk and the patch prefix — (a) whisper-base
+   at published widths and all 6 + 6 layers, bf16 weights, an fp32
+   window (m = 70,909,952): phase 13's trace and gates with decode off
+   (the reference's serving decode passes no frames), ``fold_cols``
+   launched, no flash attention; (b) its fp32 decode at batch 2 over
+   1,500 frames: prefill of 64 tokens (18 flash-attention launches: 6
+   encoder, 6 self, 6 cross) and 16 teacher-forced steps against the
+   teacher-forced forward (2e-3), then the bf16 weights timed; (c) its
+   NGD trainer at ``train_main``'s defaults (bf16, batch 8, seq 64, λ =
+   1e-3): 3 exact dense steps on the kernels against the plain versions
+   (phase 13b's gates), gram_sv, the Cholesky, the substitution and
+   ngd_apply launched; (d) pixtral-12b at published widths, 4 of 40
+   layers, fp32 (2,432,742,400 parameters): prefill of a 256-patch
+   prefix and 512 tokens at batch 2 with ``max_len`` counting the prefix
+   (4 launches), 16 teacher-forced steps against the forward (2e-3),
+   then the same weights in bf16 timed; (e) ``serve_main --smoke``
+   (whisper with ``--decode-tokens 0``) and ``train_main --smoke
+   --optimizer ngd --steps 3`` of both on the card and on the CPU, the
+   first nine serving losses and every training loss within 1e-3; the
+   flash-attention checks hold whisper's encoder (2, 1500, 8/8, 64) and
+   cross-attention (2, 64) × (2, 1500) in bf16 and pixtral's (2, 768,
+   32/8, 128) causal in bf16 and fp32 to the plain version;
 15. profiles of one dense flush (fp32 and bf16 window), one (1024,
    100_000) solve, one NGD step
    (the solve's and the step's must show the wgmma Gram kernel and not
@@ -139,8 +161,9 @@ Phases, each printing its own lines:
    256 and 2048, flash attention at T = 1024 and 32,768; gram_sv and
    ngd_apply also at the LM trainer's (8, 595,344,384) bf16).
 
-Any failed check raises, so the script exits non-zero. The last line is
-``{"ok": true, "device": {...}}``.
+Any failed check raises, so the script exits non-zero. It prints its
+total time before the card's line; the last line is ``{"ok": true,
+"device": {...}}``.
 
     python3 chip_smoke.py
 """
@@ -187,8 +210,8 @@ from repro_torch.kernels.serve_solve import (  # noqa: E402
 from repro_torch.launch.train import (batch_to, make_prefill,  # noqa: E402
                                       make_serve_step)
 from repro_torch.launch.trainer import (build_server,  # noqa: E402
-                                        build_trainer)
-from repro_torch.models import get_api  # noqa: E402
+                                        build_trainer, train_main)
+from repro_torch.models import encdec, get_api  # noqa: E402
 from repro_torch.models import lm as model_lm  # noqa: E402
 from repro_torch.models import layers as model_layers  # noqa: E402
 from repro_torch.optim import (NaturalGradient,  # noqa: E402
@@ -288,6 +311,17 @@ FLASH_SCALES = (1.5, -0.3)
 # after fp32 sums taken in another order: one bf16 ulp of the largest
 # output is at most 2^-7 of it, so 1e-2 of max |o|.
 FLASH_TOL = {torch.float32: 2e-4, torch.bfloat16: 1e-2}
+# the encoder-decoder trunk's and the VLM's attention (ROADMAP A6, second
+# half): (label, B, Tq, KH, group, hd, Tk, causal, dtypes) — whisper's
+# encoder over 1,500 frames, its cross-attention from a 64-token prompt,
+# pixtral's 32/8 heads over a 256-patch prefix and 512 tokens
+FLASH_A6B = (
+    ("whisper encoder", 2, 1500, 8, 1, 64, 1500, False, (torch.bfloat16,)),
+    ("whisper cross-attention", 2, 64, 8, 1, 64, 1500, False,
+     (torch.bfloat16,)),
+    ("pixtral prefix + prompt", 2, 768, 8, 4, 128, 768, True,
+     (torch.bfloat16, torch.float32)),
+)
 # The LM serving front: llama3.2-3b at its published widths, depth cut to
 # 2 layers (the n × m score window of all 28 layers, 51 GB in bf16, does
 # not fit one card), bf16 as published; the CLI's defaults otherwise
@@ -365,9 +399,33 @@ ZOO_SERVED = (("mamba2-1.3b", 16, None, LM_BURST),
 # the bf16 model's prefill of a 4,096-token prompt and its decode, timed
 # and printed.
 MAMBA_ARCH, MAMBA_B, MAMBA_PROMPT, MAMBA_STEPS = "mamba2-1.3b", 2, 1024, 16
-MAMBA_DECODE_GATE, MAMBA_TIMED_PROMPT, MAMBA_TIMED_TOKENS = 2e-3, 4096, 32
+MAMBA_TIMED_PROMPT, MAMBA_TIMED_TOKENS = 4096, 32
+DECODE_GATE = 2e-3
 # serve_main --smoke per family, on the card and on the CPU
 ZOO_CLI = ("qwen3-moe-30b-a3b", "mamba2-1.3b", "jamba-v0.1-52b")
+# 14b. The encoder-decoder trunk and the patch prefix (ROADMAP A6's second
+# half). whisper-base at published widths and full depth (6 encoder + 6
+# decoder layers, m = 70,909,952: an fp32 window of 2.27 GB at n = 8),
+# bf16 weights: phase 13's trace with decode off (the reference's serving
+# decode passes no frames), then train_main's defaults under the trainer
+# (TRAIN_*). Its decode in fp32 at batch 2: 1,500 random frames, a
+# 64-token prompt and 16 teacher-forced steps (the learned positions stop
+# at 448); then the same weights in bf16, 32 greedy steps timed.
+WHISPER_ARCH, PIXTRAL_ARCH = "whisper-base", "pixtral-12b"
+WHISPER_B, WHISPER_PROMPT, WHISPER_STEPS, WHISPER_TIMED_TOKENS = 2, 64, 16, 32
+# pixtral-12b at published widths, 4 of 40 layers, one fp32 draw of
+# 2,432,742,400 parameters (9.73 GB; its untied 131,072 × 5,120 embedding
+# and head are 1.34 B of them): a 256-patch prefix and a 512-token prompt
+# at batch 2, 16 teacher-forced steps; then the same weights in bf16.
+# Its serving window does not fit the card at any depth: a bf16 window of
+# 25.8 GB at 1 layer, a peak of ≈ 90 GB scaled from qwen3-moe's 69.85 GB
+# beside its 19.94 GB window.
+PIXTRAL_LAYERS, PIXTRAL_B, PIXTRAL_PROMPT, PIXTRAL_STEPS = 4, 2, 512, 16
+PIXTRAL_TIMED_TOKENS = 32
+# serve_main --smoke (whisper with decode off, as the reference serves it)
+# and train_main --smoke --optimizer ngd --steps 3, card and CPU
+A6B_CLI = ((WHISPER_ARCH, ("--decode-tokens", "0")), (PIXTRAL_ARCH, ()))
+A6B_TRAIN_STEPS = 3
 
 KERNELS = {
     # name: (source, TPU kernel it replaces)
@@ -1862,6 +1920,15 @@ def flash_checks() -> dict:
               f"{FLASH_LONG_T} (24/8 heads, masks {FLASH_MASKS}) and at "
               f"scales {FLASH_SCALES} (gate {FLASH_TOL[torch.bfloat16]:g})",
               flush=True)
+    for label, B, Tq, KH, g, hd, Tk, causal, dtypes in FLASH_A6B:
+        for dtype in dtypes:
+            q, k, v = attention_inputs(B, Tq, KH, g, hd, dtype, gen, Tk=Tk)
+            err, _ = flash_case(q, k, v, causal, None,
+                                f"flash_attention {label} {str(dtype)[6:]}")
+            print(f"  {label}: q ({B}, {Tq}, {KH * g}, {hd}), k ({B}, {Tk}, "
+                  f"{KH}, {hd}), {str(dtype)[6:]}, causal={causal}: rel err "
+                  f"{err:.2e} (gate {FLASH_TOL[dtype]:g}), repeat "
+                  "bit-identical", flush=True)
     # a fully masked row (q beyond every key of its window) gives 0, not
     # NaN: within 64-row and 128-row q tiles, and past a 128-key tile
     for Tq, Tk, window, hd in ((300, 40, 16, 128), (600, 200, 32, 128),
@@ -1977,13 +2044,21 @@ def same_inputs_check(server, errs: dict, sync):
 
 
 def attention_layers(cfg) -> int:
-    """Layers with self-attention: the prefill's flash-attention launches
-    a prompt."""
+    """Layers with self-attention."""
     return sum(slot.kind == "attn" for slot in cfg.slots) * cfg.repeats
 
 
+def prefill_launches(cfg) -> int:
+    """The flash-attention launches of a prefill whose every attention
+    takes the kernel route: a self-attention layer one, a cross-attention
+    layer one more, and an encoder's bidirectional layers one each."""
+    cross = sum(slot.cross_attn for slot in cfg.slots) * cfg.repeats
+    enc = cfg.enc_layers if cfg.family in ("encdec", "audio") else 0
+    return attention_layers(cfg) + cross + enc
+
+
 def lm_trace(cfg, mode, *, device="cuda", against=None, profile_round=False,
-             window_dtype=None, burst=LM_BURST):
+             window_dtype=None, burst=LM_BURST, decode_tokens=LM_NEW):
     """Build the server and serve the trace with every kernel wrapper at
     ``mode`` (None: kernels on the card; "ref": the plain versions).
     ``against``: the kernel run's result; each solution x is then held
@@ -1991,9 +2066,10 @@ def lm_trace(cfg, mode, *, device="cuda", against=None, profile_round=False,
     re-solved on the plain route against the run's own window
     (``same_inputs_check``).
     ``window_dtype``: the window's storage dtype (None: fp32); ``burst``:
-    requests a flush. Returns the records, x of each request (on the
-    host, kernel run only), those errors, the launch counts and the
-    server summary."""
+    requests a flush; ``decode_tokens``: greedy tokens a request (0: no
+    decode, whisper's serving trace). Returns the records, x of each
+    request (on the host, kernel run only), those errors, the launch
+    counts and the server summary."""
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
     xs, x_err, same_err = {}, {}, {}
     gc.collect()
@@ -2030,8 +2106,8 @@ def lm_trace(cfg, mode, *, device="cuda", against=None, profile_round=False,
         t0 = time.perf_counter()
         out = serve_trace(server, h, requests=LM_REQUESTS, window=LM_WINDOW,
                           adapt_examples=LM_ADAPT, seq=LM_SEQ,
-                          decode_tokens=LM_NEW, damping=LM_LAM0, lr=LM_LR,
-                          burst=burst, seed=SEED, keep_logits=True,
+                          decode_tokens=decode_tokens, damping=LM_LAM0,
+                          lr=LM_LR, burst=burst, seed=SEED, keep_logits=True,
                           on_result=on_result,
                           log=lambda line: print("    " + line, flush=True))
         sync()
@@ -2056,7 +2132,9 @@ def lm_trace(cfg, mode, *, device="cuda", against=None, profile_round=False,
           + ", ".join(f"{k}={v}" for k, v in counts.items() if v), flush=True)
     recs = out["records"]
     for key in ("score_ms", "flush_ms", "apply_ms", "decode_ms"):
-        vals = [rec[key] for rec in recs]
+        vals = [rec[key] for rec in recs if key in rec]
+        if not vals:
+            continue
         print(f"    per request {key}: mean {np.mean(vals):.1f}, min "
               f"{min(vals):.1f}, max {max(vals):.1f}", flush=True)
     if against is None:
@@ -2081,14 +2159,15 @@ def lm_trace(cfg, mode, *, device="cuda", against=None, profile_round=False,
         # one request a round: a burst's three pending requests and their
         # solutions leave too little of the card for the fold's copy
         # beside the profiler
-        label = ("one serving round (score pass, solve + fold, update, "
-                 f"prefill + {LM_NEW - 1} decode steps)")
+        label = ("one serving round (score pass, solve + fold, update"
+                 + (f", prefill + {decode_tokens - 1} decode steps)"
+                    if decode_tokens else ", no decode)"))
         busy = profile(label, lambda: serve_trace(
             server, h, requests=1, window=LM_WINDOW,
-            adapt_examples=LM_ADAPT, seq=LM_SEQ, decode_tokens=LM_NEW,
+            adapt_examples=LM_ADAPT, seq=LM_SEQ, decode_tokens=decode_tokens,
             damping=LM_LAM0, lr=LM_LR, burst=1, seed=SEED,
             log=lambda line: None))
-        if attention_layers(cfg):
+        if attention_layers(cfg) and decode_tokens:
             require_wgmma_attention(label, busy)
     del server, h
     same = {rec["request"]: same_err[rec["uid"]] for rec in recs} \
@@ -2117,20 +2196,24 @@ def token_agreement(k_rec, p_rec, vocab: int) -> str:
 
 
 def lm_serving_path(cfg, device="cuda", window_dtype=None,
-                    burst=LM_BURST) -> dict:
+                    burst=LM_BURST, decode_tokens=LM_NEW) -> dict:
     """The trace on the kernels, then on the plain versions; gates losses,
-    each x, the first prefill's last-position logits and the tokens. The
-    prefills launch flash attention once an attention layer."""
+    each x, and with decode the first prefill's last-position logits and
+    the tokens. The prefills launch flash attention once an attention
+    layer (``decode_tokens`` = 0: no prefill, no launch)."""
     kern = lm_trace(cfg, None, device=device, profile_round=device == "cuda",
-                    window_dtype=window_dtype, burst=burst)
+                    window_dtype=window_dtype, burst=burst,
+                    decode_tokens=decode_tokens)
     require_launches("LM serving", kern["counts"], "flash_attention",
-                     attention_layers(cfg) * LM_REQUESTS)
+                     attention_layers(cfg) * LM_REQUESTS if decode_tokens
+                     else 0)
     require_launches("LM serving", kern["counts"], "fold_cols")
     gc.collect()
     if device == "cuda":
         torch.cuda.empty_cache()
     plain = lm_trace(cfg, "ref", device=device, against=kern,
-                     window_dtype=window_dtype, burst=burst)
+                     window_dtype=window_dtype, burst=burst,
+                     decode_tokens=decode_tokens)
     require_launches("LM serving, plain route", plain["counts"],
                      "flash_attention", 0)
     by_req = {rec["request"]: rec for rec in plain["records"]}
@@ -2146,9 +2229,9 @@ def lm_serving_path(cfg, device="cuda", window_dtype=None,
               f"{x_l2:.2e} in 2-norm"
               f"{'' if rec['request'] < burst else ' (inputs differ)'}, "
               f"x vs its v re-solved on the plain route against the kernel "
-              f"run's window {same:.2e} (gate {LM_X_GATE:g}), tokens "
-              f"{token_agreement(rec, p_rec, cfg.vocab)}",
-              flush=True)
+              f"run's window {same:.2e} (gate {LM_X_GATE:g})"
+              + (f", tokens {token_agreement(rec, p_rec, cfg.vocab)}"
+                 if decode_tokens else ""), flush=True)
         if not np.isfinite(rec["loss"]) or not loss_err < LM_LOSS_GATE:
             raise AssertionError(f"request {rec['request']}: loss "
                                  f"{rec['loss']} vs plain {p_rec['loss']}")
@@ -2156,19 +2239,22 @@ def lm_serving_path(cfg, device="cuda", window_dtype=None,
             raise AssertionError(f"request {rec['request']}: x {same:.3e} "
                                  "from the plain route on the same inputs")
     worst_x = max(plain["x_err"][r][0] for r in range(burst))
-    # over the real vocabulary: the padded slots hold NEG_INF
-    first_k, first_p = kern["records"][0]["logits"][0][:cfg.vocab], \
-        plain["records"][0]["logits"][0][:cfg.vocab]
-    logit_err = rel(first_k, first_p)
+    logit_line = ""
+    if decode_tokens:
+        # over the real vocabulary: the padded slots hold NEG_INF
+        first_k, first_p = kern["records"][0]["logits"][0][:cfg.vocab], \
+            plain["records"][0]["logits"][0][:cfg.vocab]
+        logit_err = rel(first_k, first_p)
+        logit_line = (f"first prefill's last-position logits {logit_err:.2e} "
+                      f"(gate {LM_LOGIT_GATE:g}); ")
     print(f"  kernels vs plain route: worst loss {worst_loss:.2e} (gate "
           f"{LM_LOSS_GATE:g}), worst x of the first burst {worst_x:.2e} "
-          f"(gate {LM_X_GATE:g}), "
-          f"first prefill's last-position logits {logit_err:.2e} (gate "
-          f"{LM_LOGIT_GATE:g}); plain-route solve p50 "
+          f"(gate {LM_X_GATE:g}), {logit_line}plain-route solve p50 "
           f"{plain['summary']['p50_ms']:.1f} ms", flush=True)
     if not worst_x < LM_X_GATE:
         raise AssertionError(f"LM serving: x {worst_x:.3e} from plain")
-    if not (torch.isfinite(first_k).all() and logit_err < LM_LOGIT_GATE):
+    if decode_tokens and not (torch.isfinite(first_k).all()
+                              and logit_err < LM_LOGIT_GATE):
         raise AssertionError(f"LM serving: logits {logit_err:.3e} from plain")
     return kern
 
@@ -2618,86 +2704,94 @@ def zoo_serving_path(device="cuda") -> dict:
     return out
 
 
-def mamba_decode_path(device="cuda") -> dict:
-    """mamba2-1.3b at all 48 layers: the fp32 model's prefill of a
-    MAMBA_PROMPT-token prompt (batch MAMBA_B), then MAMBA_STEPS
-    teacher-forced decode steps through the serve front's steps, each
-    step's logits held to the teacher-forced forward's (MAMBA_DECODE_GATE,
-    rtol = atol); then the bf16 model's prefill of MAMBA_TIMED_PROMPT
-    tokens and MAMBA_TIMED_TOKENS greedy decode steps, timed."""
+def forward_logits(cfg, params, tokens, extra: dict):
+    """The teacher-forced forward's logits: whisper's decoder on its
+    encoder's output (the blockwise attention, as ``loss`` runs it), or
+    the LM over the patch prefix and the tokens."""
+    if "frames" in extra:
+        enc = encdec.encode(params, cfg, extra["frames"])
+        return model_lm.forward(params["dec"], cfg, tokens, enc_out=enc)[0]
+    return model_lm.forward(params, cfg, tokens,
+                            prefix_embeds=extra.get("prefix_embeds"))[0]
+
+
+def teacher_forced_decode(label, cfg, params, tokens, prompt: int, extra,
+                          offset: int = 0, device="cuda") -> dict:
+    """The fp32 model's prefill of ``tokens[:, :prompt]`` with ``extra``
+    (the frames, or the patch prefix of ``offset`` positions) through the
+    serve front's steps, then the rest of ``tokens`` teacher-forced, a
+    decode step each; the prefill's last logits and every step's held to
+    the teacher-forced forward's at the same position (DECODE_GATE, rtol
+    = atol). The prefill must launch flash attention
+    ``prefill_launches(cfg)`` times. Returns the launches and times."""
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
-    cfg = configs.get_config(MAMBA_ARCH).scaled(dtype="float32")
     api = get_api(cfg)
-    gen = torch.Generator().manual_seed(SEED + 17)
-    t0 = time.perf_counter()
-    params = api.init_params(gen, device)
-    T = MAMBA_PROMPT + MAMBA_STEPS
-    tokens = torch.randint(3, cfg.vocab, (MAMBA_B, T), generator=gen).to(device)
-    sync()
-    init_s = time.perf_counter() - t0
     prefill, step = make_prefill(api), make_serve_step(api)
+    B, T = tokens.shape
     V = cfg.vocab
-    ops.reset_launch_counts()
     with torch.no_grad():
+        sync()
         t0 = time.perf_counter()
-        full, _ = model_lm.forward(params, cfg, tokens)
+        full = forward_logits(cfg, params, tokens, extra)
         sync()
         fwd_ms = (time.perf_counter() - t0) * 1e3
+        ops.reset_launch_counts()
         t0 = time.perf_counter()
-        logits, cache, idx = prefill(params, {"tokens": tokens[:, :MAMBA_PROMPT],
-                                              "max_len": T})
+        logits, cache, idx = prefill(params, {"tokens": tokens[:, :prompt],
+                                              "max_len": offset + T, **extra})
         sync()
         pre_ms = (time.perf_counter() - t0) * 1e3
-        errs = [(logits[:, -1, :V], full[:, MAMBA_PROMPT - 1, :V])]
+        counts = ops.launch_counts()
+        errs = [(logits[:, -1, :V], full[:, offset + prompt - 1, :V])]
         t0 = time.perf_counter()
-        for t in range(MAMBA_PROMPT, T):
-            _, cache, last = step(params, cache, t, tokens[:, t:t + 1])
-            errs.append((last[:, :V], full[:, t, :V]))
+        for t in range(prompt, T):
+            _, cache, last = step(params, cache, offset + t,
+                                  tokens[:, t:t + 1])
+            errs.append((last[:, :V], full[:, offset + t, :V]))
         sync()
-        dec_ms = (time.perf_counter() - t0) * 1e3 / MAMBA_STEPS
-    counts = ops.launch_counts()
-    tol = MAMBA_DECODE_GATE
+        dec_ms = (time.perf_counter() - t0) * 1e3 / (T - prompt)
+    tol = DECODE_GATE
     worst = max(float(((a - b).abs() / (tol + tol * b.abs())).max())
                 for a, b in errs)
     max_abs = max(float((a - b).abs().max()) for a, b in errs)
     finite = all(bool(torch.isfinite(a).all()) for a, _ in errs)
-    state = sum(t.numel() * t.element_size() for c in cache
-                for t in c.values())
-    print(f"  {cfg.n_layers} layers, fp32, {sum(t.numel() for t in leaves(params)) / 1e9:.3f} G "
-          f"params drawn in {init_s:.1f} s; forward of ({MAMBA_B}, {T}) "
-          f"{fwd_ms:.1f} ms, prefill of ({MAMBA_B}, {MAMBA_PROMPT}) "
-          f"{pre_ms:.1f} ms (next index {idx}), decode {dec_ms:.2f} ms a "
-          f"step; decode state {state} B; the prefill's last logits and "
-          f"{MAMBA_STEPS} decode steps vs the teacher-forced forward: "
-          f"max-abs {max_abs:.2e}, worst |a − b| / ({tol:g} + {tol:g}|b|) "
-          f"{worst:.3f} (gate 1); launches "
-          + (", ".join(f"{k}={v}" for k, v in counts.items() if v)
-             or "none (no attention layer, no solve)"), flush=True)
-    if not (finite and worst <= 1.0 and idx == MAMBA_PROMPT):
-        raise AssertionError(f"mamba2 decode: {worst:.3f} of the gate from "
+    print(f"  {label}: forward of ({B}, {offset} + {T}) {fwd_ms:.1f} ms, "
+          f"prefill of ({B}, {offset} + {prompt}) {pre_ms:.1f} ms (next index"
+          f" {idx}), decode {dec_ms:.2f} ms a step; the prefill's last "
+          f"logits and {T - prompt} decode steps vs the teacher-forced "
+          f"forward: max-abs {max_abs:.2e}, worst |a − b| / ({tol:g} + "
+          f"{tol:g}|b|) {worst:.3f} (gate 1); prefill launches "
+          + (", ".join(f"{k}={v}" for k, v in counts.items() if v) or "none"),
+          flush=True)
+    if not (finite and worst <= 1.0 and idx == offset + prompt):
+        raise AssertionError(f"{label}: decode {worst:.3f} of the gate from "
                              "the teacher-forced forward")
-    del full, cache, logits, errs, params
-    gc.collect()
-    if device == "cuda":
-        torch.cuda.empty_cache()
+    require_launches(label, counts, "flash_attention", prefill_launches(cfg))
+    del full, cache, logits, errs
+    return {"counts": counts, "decode_ms": dec_ms, "prefill_ms": pre_ms}
 
-    api16 = get_api(configs.get_config(MAMBA_ARCH))           # bf16
-    params = api16.init_params(torch.Generator().manual_seed(SEED + 17),
-                               device)
-    prompt = torch.randint(3, cfg.vocab, (1, MAMBA_TIMED_PROMPT),
-                           generator=gen).to(device)
-    prefill, step = make_prefill(api16), make_serve_step(api16)
-    n_new = MAMBA_TIMED_TOKENS
+
+def timed_decode(label, cfg, params, tokens, extra, n_new: int,
+                 offset: int = 0, device="cuda") -> dict:
+    """A prefill of ``tokens`` (with ``extra``) and ``n_new`` greedy decode
+    steps, timed after a warm-up (three prefills, the last two timed; two
+    steps, then ``n_new`` timed). Returns the last prefill's launches."""
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    api = get_api(cfg)
+    prefill, step = make_prefill(api), make_serve_step(api)
+    T = tokens.shape[1]
+    batch = {"tokens": tokens, "max_len": offset + T + n_new + 2, **extra}
     with torch.no_grad():
         pre = []
-        for _ in range(3):                      # a warm-up, then two timed
+        for _ in range(3):
+            ops.reset_launch_counts()
             t0 = time.perf_counter()
-            logits, cache, idx = prefill(params, {
-                "tokens": prompt, "max_len": MAMBA_TIMED_PROMPT + n_new + 2})
+            logits, cache, idx = prefill(params, batch)
             sync()
             pre.append((time.perf_counter() - t0) * 1e3)
+        counts = ops.launch_counts()
         nxt = torch.argmax(logits[:, -1], -1).to(torch.int32)
-        for t in range(2):                      # warm-up steps
+        for t in range(2):
             nxt, cache, _ = step(params, cache, idx + t, nxt[:, None])
         sync()
         t0 = time.perf_counter()
@@ -2705,44 +2799,95 @@ def mamba_decode_path(device="cuda") -> dict:
             nxt, cache, last = step(params, cache, idx + t, nxt[:, None])
         sync()
         dec = (time.perf_counter() - t0) * 1e3 / n_new
-    if not torch.isfinite(last).all():
-        raise AssertionError("mamba2 bf16 decode: logits not finite")
-    print(f"  bf16 model: prefill of (1, {MAMBA_TIMED_PROMPT}) "
+    if not torch.isfinite(last[:, :cfg.vocab]).all():
+        raise AssertionError(f"{label}: logits not finite")
+    print(f"  {label}: prefill of ({tokens.shape[0]}, {offset} + {T}) "
           f"{pre[1]:.1f} / {pre[2]:.1f} ms (warm-up {pre[0]:.1f}), greedy "
-          f"decode {dec:.3f} ms a token over {n_new} tokens", flush=True)
-    del params, cache
-    return {"counts": counts, "decode_ms": dec_ms}
+          f"decode {dec:.3f} ms a step over {n_new} steps; prefill launches "
+          + (", ".join(f"{k}={v}" for k, v in counts.items() if v) or "none"),
+          flush=True)
+    require_launches(label, counts, "flash_attention", prefill_launches(cfg))
+    del cache
+    return {"counts": counts, "decode_ms": dec, "prefill_ms": pre[2]}
 
 
-def zoo_cli_path() -> dict:
-    """``serve_main --arch A --smoke`` for each family of ZOO_CLI on the
+def add_counts(total: dict, counts: dict) -> dict:
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+    return total
+
+
+def n_params(params) -> int:
+    return sum(t.numel() for t in leaves(params))
+
+
+def mamba_decode_path(device="cuda") -> dict:
+    """mamba2-1.3b at all 48 layers: the fp32 model's prefill of a
+    MAMBA_PROMPT-token prompt (batch MAMBA_B), then MAMBA_STEPS
+    teacher-forced decode steps against the teacher-forced forward
+    (``teacher_forced_decode``); then the bf16 model's prefill of
+    MAMBA_TIMED_PROMPT tokens and MAMBA_TIMED_TOKENS greedy decode steps,
+    timed (``timed_decode``)."""
+    cfg = configs.get_config(MAMBA_ARCH).scaled(dtype="float32")
+    api = get_api(cfg)
+    gen = torch.Generator().manual_seed(SEED + 17)
+    t0 = time.perf_counter()
+    params = api.init_params(gen, device)
+    T = MAMBA_PROMPT + MAMBA_STEPS
+    tokens = torch.randint(3, cfg.vocab, (MAMBA_B, T), generator=gen).to(device)
+    print(f"  {cfg.n_layers} layers, fp32, {n_params(params) / 1e9:.3f} G "
+          f"params drawn in {time.perf_counter() - t0:.1f} s", flush=True)
+    out = teacher_forced_decode(f"{MAMBA_ARCH} fp32", cfg, params, tokens,
+                                MAMBA_PROMPT, {}, device=device)
+    del params
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    cfg16 = configs.get_config(MAMBA_ARCH)
+    params = get_api(cfg16).init_params(
+        torch.Generator().manual_seed(SEED + 17), device)
+    prompt = torch.randint(3, cfg.vocab, (1, MAMBA_TIMED_PROMPT),
+                           generator=gen).to(device)
+    timed_decode(f"{MAMBA_ARCH} bf16", cfg16, params, prompt, {},
+                 MAMBA_TIMED_TOKENS, device=device)
+    del params
+    return {"counts": out["counts"], "decode_ms": out["decode_ms"]}
+
+
+def zoo_cli_path(cells=tuple((arch, ()) for arch in ZOO_CLI),
+                 train_steps: int = 0) -> dict:
+    """``serve_main --arch A --smoke`` (with each cell's extra flags) on the
     card and on the CPU at the reference's defaults (12 requests, window
     8, seq 16, burst 3; checkpoints into a temporary directory): the first
     nine requests' losses within LM_LOSS_GATE of the CPU's (from the tenth
     on the CLI's updates have blown the loss up, as in ``cli_smoke``), the
-    rest printed. Returns the card runs' launches, summed."""
+    rest printed. With ``train_steps``, also ``train_main --arch A --smoke
+    --optimizer ngd --steps train_steps`` on both, every step's loss
+    within LM_LOSS_GATE of the CPU's. Returns the card runs' launches,
+    summed."""
     tmp = tempfile.mkdtemp(prefix="zoo_cli_")
     total = {}
     try:
-        for arch in ZOO_CLI:
+        for arch, extra in cells:
             runs = {}
             for dev in ("cuda", "cpu"):
                 ops.reset_launch_counts()
                 server, losses, _, out, wall, _ = run_cli(
                     ["--arch", arch, "--smoke", "--device", dev,
-                     "--ckpt-dir", os.path.join(tmp, f"{arch}_{dev}")])
+                     "--ckpt-dir", os.path.join(tmp, f"{arch}_{dev}"),
+                     *extra])
                 runs[dev] = {"losses": losses, "wall": wall,
                              "adapted": server.stats.adapted,
                              "verdict": cli_line(out, "health: ").split()[1],
                              "counts": ops.launch_counts()}
             card, cpu = runs["cuda"], runs["cpu"]
-            for k, v in card["counts"].items():
-                total[k] = total.get(k, 0) + v
+            add_counts(total, card["counts"])
             errs = [abs(a - b) / abs(b) for a, b in zip(card["losses"],
                                                         cpu["losses"])]
             gated = 3 * 3
             worst = max(errs[:gated])
-            print(f"  {arch} --smoke: card {card['wall']:.1f} s, CPU "
+            print(f"  {arch} --smoke {' '.join(extra)}: card "
+                  f"{card['wall']:.1f} s, CPU "
                   f"{cpu['wall']:.1f} s; losses on the card "
                   + " ".join(f"{v:.6g}" for v in card["losses"])
                   + "; vs the CPU per request "
@@ -2757,9 +2902,152 @@ def zoo_cli_path() -> dict:
                 raise AssertionError(f"{arch} --smoke: the card's losses "
                                      f"{worst:.3e} from the CPU's")
             require_launches(f"{arch} --smoke", card["counts"], "fold_cols")
+            if not train_steps:
+                continue
+            trained = {}
+            for dev in ("cuda", "cpu"):
+                ops.reset_launch_counts()
+                t0 = time.perf_counter()
+                losses, report = train_main(
+                    ["--arch", arch, "--smoke", "--device", dev,
+                     "--optimizer", "ngd", "--steps", str(train_steps),
+                     "--ckpt-dir", os.path.join(tmp, f"{arch}_{dev}_train")])
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                trained[dev] = {"losses": losses, "report": report,
+                                "wall": time.perf_counter() - t0,
+                                "counts": ops.launch_counts()}
+            card, cpu = trained["cuda"], trained["cpu"]
+            add_counts(total, card["counts"])
+            errs = [abs(a - b) / abs(b) for a, b in zip(card["losses"],
+                                                        cpu["losses"])]
+            print(f"  {arch} train_main --smoke --optimizer ngd --steps "
+                  f"{train_steps}: card {card['wall']:.1f} s, CPU "
+                  f"{cpu['wall']:.1f} s; losses on the card "
+                  + " ".join(f"{v:.6g}" for v in card["losses"])
+                  + "; vs the CPU per step "
+                  + " ".join(f"{v:.1e}" for v in errs)
+                  + f" (gate {LM_LOSS_GATE:g}); completed "
+                  f"{card['report']['completed']} / "
+                  f"{cpu['report']['completed']}; card launches "
+                  + ", ".join(f"{k}={v}" for k, v in card["counts"].items()
+                              if v), flush=True)
+            if len(card["losses"]) != train_steps or \
+                    not card["report"]["completed"] or \
+                    not max(errs) < LM_LOSS_GATE:
+                raise AssertionError(f"{arch} train_main --smoke: the card's "
+                                     f"losses {max(errs):.3e} from the CPU's")
         return total
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# 14b. the encoder-decoder trunk and the patch prefix (whisper, pixtral)
+# ---------------------------------------------------------------------------
+
+def whisper_decode_path(device="cuda") -> dict:
+    """whisper-base at published widths and full depth, fp32: a batch of
+    WHISPER_B with 1,500 random frames, prefill of a WHISPER_PROMPT-token
+    prompt and WHISPER_STEPS teacher-forced decode steps
+    (``teacher_forced_decode``; 18 flash launches a prefill: 6 encoder, 6
+    self, 6 cross); then the same weights in bf16, timed."""
+    cfg = configs.get_config(WHISPER_ARCH).scaled(dtype="float32")
+    api = get_api(cfg)
+    gen = torch.Generator().manual_seed(SEED + 18)
+    t0 = time.perf_counter()
+    params = api.init_params(gen, device)
+    T = WHISPER_PROMPT + WHISPER_STEPS
+    tokens = torch.randint(3, cfg.vocab, (WHISPER_B, T), generator=gen
+                           ).to(device)
+    frames = torch.randn((WHISPER_B, cfg.enc_seq, cfg.enc_d_model),
+                         generator=gen).to(device)
+    init_s = time.perf_counter() - t0
+    print(f"  {cfg.enc_layers} + {cfg.n_layers} layers, fp32, "
+          f"{n_params(params):,} params drawn in {init_s:.1f} s; frames "
+          f"{tuple(frames.shape)}", flush=True)
+    total = {}
+    out = teacher_forced_decode("whisper-base fp32", cfg, params, tokens,
+                                WHISPER_PROMPT, {"frames": frames},
+                                device=device)
+    add_counts(total, out["counts"])
+    cfg16 = cfg.scaled(dtype="bfloat16")
+    params = tree_map(lambda t: t.to(torch.bfloat16), params)
+    timed = timed_decode("whisper-base bf16", cfg16, params,
+                         tokens[:, :WHISPER_PROMPT],
+                         {"frames": frames.to(torch.bfloat16)},
+                         WHISPER_TIMED_TOKENS, device=device)
+    add_counts(total, timed["counts"])
+    del params
+    return {"counts": total, "decode_ms": out["decode_ms"],
+            "bf16": timed}
+
+
+def pixtral_decode_path(device="cuda") -> dict:
+    """pixtral-12b at published widths, PIXTRAL_LAYERS of 40 layers, fp32
+    (one draw of 2,432,742,400 parameters): a PIXTRAL_B batch of 256
+    random patch embeddings and a PIXTRAL_PROMPT-token prompt, prefill
+    with ``max_len`` counting the prefix, PIXTRAL_STEPS teacher-forced
+    decode steps (``teacher_forced_decode``; a flash launch a layer); then
+    the same weights cast to bf16, timed."""
+    cfg = configs.get_config(PIXTRAL_ARCH).scaled(n_layers=PIXTRAL_LAYERS,
+                                                  dtype="float32")
+    api = get_api(cfg)
+    gen = torch.Generator().manual_seed(SEED + 19)
+    t0 = time.perf_counter()
+    params = api.init_params(gen, device)
+    P, T = cfg.n_patches, PIXTRAL_PROMPT + PIXTRAL_STEPS
+    tokens = torch.randint(3, cfg.vocab, (PIXTRAL_B, T), generator=gen
+                           ).to(device)
+    prefix = torch.randn((PIXTRAL_B, P, cfg.d_model), generator=gen
+                         ).to(device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    m = n_params(params)
+    print(f"  {cfg.n_layers} of 40 layers, fp32, {m:,} params "
+          f"({m * 4 / 1e9:.2f} GB) drawn in {init_s:.1f} s; prefix "
+          f"{tuple(prefix.shape)}", flush=True)
+    total = {}
+    out = teacher_forced_decode("pixtral-12b fp32", cfg, params, tokens,
+                                PIXTRAL_PROMPT, {"prefix_embeds": prefix},
+                                offset=P, device=device)
+    add_counts(total, out["counts"])
+    cfg16 = cfg.scaled(dtype="bfloat16")
+    params = tree_map(lambda t: t.to(torch.bfloat16), params)
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    timed = timed_decode("pixtral-12b bf16", cfg16, params,
+                         tokens[:, :PIXTRAL_PROMPT],
+                         {"prefix_embeds": prefix.to(torch.bfloat16)},
+                         PIXTRAL_TIMED_TOKENS, offset=P, device=device)
+    add_counts(total, timed["counts"])
+    if device == "cuda":
+        print(f"  peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB",
+              flush=True)
+    del params
+    return {"counts": total, "decode_ms": out["decode_ms"], "m": m,
+            "bf16": timed}
+
+
+def whisper_trainer_path(device="cuda") -> dict:
+    """whisper-base's NGD trainer at published widths and full depth, at
+    ``train_main``'s defaults (bf16, batch 8, seq 64, λ 1e-3, lr 0.05; n =
+    8): TRAIN_STEPS exact dense steps through ``ops.chol_solve_fused``
+    against the same steps on the plain versions
+    (``kernel_vs_plain_steps``); gram_sv, the Cholesky, the substitution
+    and ngd_apply each launched."""
+    cfg = configs.get_config(WHISPER_ARCH)
+    counts = dict.fromkeys(ops.launch_counts(), 0)
+    routes = dict.fromkeys(GRAM_ROUTES, 0)
+    kern = kernel_vs_plain_steps(cfg, "dense", TRAIN_STEPS, device=device,
+                                 counts=counts, routes=routes)
+    for kname in ("gram_sv", "cholesky", "trisolve", "ngd_apply"):
+        require_launches("whisper-base NGD trainer", counts, kname)
+    del kern
+    gc.collect()
+    return {"counts": counts}
 
 
 # ---------------------------------------------------------------------------
@@ -2914,6 +3202,56 @@ def train_run(cfg, label: str, steps: int, *, solver="chol",
     return out
 
 
+def kernel_vs_plain_steps(cfg, part: str, steps: int, *, blocked=False,
+                          device="cuda", counts=None, routes=None,
+                          ckpt_dir=None, save_at=None) -> dict:
+    """``steps`` exact NGD steps through ``ops.chol_solve_fused`` (its
+    launches into ``counts``/``routes``), then the same steps on the plain
+    versions: the losses within TRAIN_LOSS_GATE, step 0's natural gradient
+    against the float64 solve of its own S and v no worse than the plain
+    route's plus TRAIN_RES_GATE. Returns the kernel run (its state
+    dropped) and the parameter count ``m``."""
+    plain = functools.partial(ops.chol_solve_fused, mode="ref")
+    kern = train_run(cfg, f"({part}) kernels", steps,
+                     solver=ops.chol_solve_fused, blocked=blocked,
+                     device=device, counts=counts, routes=routes,
+                     ckpt_dir=ckpt_dir, save_at=save_at)
+    m = sum(t.numel() for t in leaves(kern.pop("state")["params"]))
+    print(f"  m = {m:,} parameters, n = {TRAIN_BATCH} samples, S "
+          f"{TRAIN_BATCH}x{m} {cfg.dtype} "
+          f"({TRAIN_BATCH * m * cfg.param_dtype.itemsize / 1e9:.2f} GB)",
+          flush=True)
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    ref = train_run(cfg, f"({part}) plain versions", steps, solver=plain,
+                    blocked=blocked, device=device)
+    ref.pop("state")
+    loss_err = max(abs(a - b) / abs(b) for a, b in
+                   zip(kern["losses"], ref["losses"]))
+    kn, pn = kern["natgrad"], ref["natgrad"]
+    print(f"  ({part}) kernels vs plain: worst loss {loss_err:.2e} (gate "
+          f"{TRAIN_LOSS_GATE:g}); step 0's natural gradient: residual "
+          f"{kn['residual']:.3e} against {pn['residual']:.3e}, from the "
+          f"float64 solve {kn['err']:.3e} against {pn['err']:.3e} (gates: "
+          f"≤ plain + {TRAIN_RES_GATE:g}); step 0's batch's loss "
+          f"{kern['held'][0]:.6f} → {kern['held'][1]:.6f} (plain → "
+          f"{ref['held'][1]:.6f})", flush=True)
+    if not loss_err < TRAIN_LOSS_GATE:
+        raise AssertionError(f"{cfg.name} trainer ({part}): losses "
+                             f"{loss_err:.3e} from the plain route")
+    for key in ("residual", "err"):
+        if not kn[key] <= pn[key] + TRAIN_RES_GATE:
+            raise AssertionError(f"{cfg.name} trainer ({part}): natural "
+                                 f"gradient {key} {kn[key]:.3e}, plain "
+                                 f"{pn[key]:.3e}")
+    del ref
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return {**kern, "m": m}
+
+
 def lm_trainer_path(cfg, device: str = "cuda") -> dict:
     """The NGD trainer on the LM (ROADMAP A1): (a) exact dense S through
     ``ops.chol_solve_fused`` against the same steps on the plain versions,
@@ -2922,52 +3260,18 @@ def lm_trainer_path(cfg, device: str = "cuda") -> dict:
     of the kernel-route steps (``counts``) and the parameter count m."""
     counts = dict.fromkeys(ops.launch_counts(), 0)
     routes = dict.fromkeys(GRAM_ROUTES, 0)
-    plain = functools.partial(ops.chol_solve_fused, mode="ref")
     ckpt_dir = Path(__file__).resolve().parent / "build" / "lm_trainer_ckpt"
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     m = None
     runs = {}
     for part, steps, blocked in (("dense", TRAIN_STEPS, False),
                                  ("blocked", TRAIN_BLOCKED_STEPS, True)):
-        kern = train_run(cfg, f"({part}) kernels", steps,
-                         solver=ops.chol_solve_fused, blocked=blocked,
-                         device=device, counts=counts, routes=routes,
-                         ckpt_dir=ckpt_dir,
-                         save_at=1 if part == "dense" else None)
-        if m is None:
-            m = sum(t.numel() for t in leaves(kern["state"]["params"]))
-            print(f"  m = {m:,} parameters, n = {TRAIN_BATCH} samples, "
-                  f"S {TRAIN_BATCH}x{m} {cfg.dtype} "
-                  f"({TRAIN_BATCH * m * 2 / 1e9:.2f} GB)", flush=True)
-        kern.pop("state")
-        gc.collect()
-        if device == "cuda":
-            torch.cuda.empty_cache()
-        ref = train_run(cfg, f"({part}) plain versions", steps, solver=plain,
-                        blocked=blocked, device=device)
-        ref.pop("state")
-        loss_err = max(abs(a - b) / abs(b) for a, b in
-                       zip(kern["losses"], ref["losses"]))
-        kn, pn = kern["natgrad"], ref["natgrad"]
-        print(f"  ({part}) kernels vs plain: worst loss {loss_err:.2e} (gate "
-              f"{TRAIN_LOSS_GATE:g}); step 0's natural gradient: residual "
-              f"{kn['residual']:.3e} against {pn['residual']:.3e}, from the "
-              f"float64 solve {kn['err']:.3e} against {pn['err']:.3e} (gates: "
-              f"≤ plain + {TRAIN_RES_GATE:g}); step 0's batch's loss "
-              f"{kern['held'][0]:.6f} → {kern['held'][1]:.6f} (plain → "
-              f"{ref['held'][1]:.6f})", flush=True)
-        if not loss_err < TRAIN_LOSS_GATE:
-            raise AssertionError(f"LM trainer ({part}): losses {loss_err:.3e} "
-                                 "from the plain route")
-        for key in ("residual", "err"):
-            if not kn[key] <= pn[key] + TRAIN_RES_GATE:
-                raise AssertionError(f"LM trainer ({part}): natural gradient "
-                                     f"{key} {kn[key]:.3e}, plain "
-                                     f"{pn[key]:.3e}")
+        kern = kernel_vs_plain_steps(cfg, part, steps, blocked=blocked,
+                                     device=device, counts=counts,
+                                     routes=routes, ckpt_dir=ckpt_dir,
+                                     save_at=1 if part == "dense" else None)
+        m = m or kern["m"]
         runs[part] = kern
-        gc.collect()
-        if device == "cuda":
-            torch.cuda.empty_cache()
 
     stream = train_run(cfg, f"(streaming, refresh every {TRAIN_REFRESH}, "
                        f"λ = {TRAIN_STREAM_LAM:g})", TRAIN_STREAM_STEPS,
@@ -3298,6 +3602,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
               file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     phase("device")
     card = device_line()
     print(card)
@@ -3429,11 +3734,53 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"  {time.perf_counter() - t0:.1f} s; the MoE and Mamba2 phase "
           f"{time.perf_counter() - t_zoo:.1f} s", flush=True)
+    t_a6b = time.perf_counter()
+    for title, key, run in (
+            (f"LM serving, encoder-decoder: {WHISPER_ARCH} at published "
+             f"widths, all 6 + 6 layers, bf16 weights, float32 window; phase "
+             f"13's trace with decode off (window {LM_WINDOW}, seq {LM_SEQ}, "
+             f"{LM_REQUESTS} requests, burst {LM_BURST})",
+             f"LM serving, {WHISPER_ARCH}",
+             lambda: lm_serving_path(configs.get_config(WHISPER_ARCH),
+                                     decode_tokens=0)),
+            (f"encoder-decoder: {WHISPER_ARCH}, all 6 + 6 layers, fp32, "
+             f"batch {WHISPER_B}, 1500 frames, prefill of {WHISPER_PROMPT} "
+             f"tokens + {WHISPER_STEPS} teacher-forced decode steps, then "
+             f"bf16 timed", f"{WHISPER_ARCH} prefill + decode",
+             whisper_decode_path),
+            (f"encoder-decoder: {WHISPER_ARCH} NGD trainer at published "
+             f"widths, all layers, bf16, batch {TRAIN_BATCH}, seq "
+             f"{TRAIN_SEQ}, λ = {TRAIN_LAM:g}, lr {TRAIN_LR:g}",
+             f"{WHISPER_ARCH} NGD trainer", whisper_trainer_path),
+            (f"patch prefix: {PIXTRAL_ARCH} at published widths, "
+             f"{PIXTRAL_LAYERS} of 40 layers, fp32, batch {PIXTRAL_B}, "
+             f"256 patches + {PIXTRAL_PROMPT} tokens, {PIXTRAL_STEPS} "
+             f"teacher-forced decode steps, then bf16 timed",
+             f"{PIXTRAL_ARCH} prefill + decode", pixtral_decode_path),
+            ("encoder-decoder and patch prefix: python -m repro_torch.serve "
+             "--arch {whisper-base --decode-tokens 0, pixtral-12b} --smoke "
+             f"and train_main --smoke --optimizer ngd --steps "
+             f"{A6B_TRAIN_STEPS}, on the card and on the CPU",
+             "LM CLIs, whisper-base and pixtral-12b",
+             lambda: {"counts": zoo_cli_path(A6B_CLI, A6B_TRAIN_STEPS)})):
+        t0 = time.perf_counter()
+        phase(title)
+        paths[key] = run()["counts"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"  {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"  the encoder-decoder and patch-prefix phase "
+          f"{time.perf_counter() - t_a6b:.1f} s", flush=True)
     for label in ("tenant serving", "LM serving", "LM serving CLI",
                   "LM serving CLI, tenants", "LM NGD trainer",
                   "long prefill") + tuple(
                       f"LM serving, {a}" for a, _, _, _ in ZOO_SERVED) + (
-                      "mamba2 prefill + decode", "LM serving CLI, zoo"):
+                      "mamba2 prefill + decode", "LM serving CLI, zoo",
+                      f"LM serving, {WHISPER_ARCH}",
+                      f"{WHISPER_ARCH} prefill + decode",
+                      f"{WHISPER_ARCH} NGD trainer",
+                      f"{PIXTRAL_ARCH} prefill + decode",
+                      "LM CLIs, whisper-base and pixtral-12b"):
         print(f"  launches on {label}: " + ", ".join(
             f"{k}={v}" for k, v in paths[label].items() if v))
 
@@ -3480,6 +3827,7 @@ def main() -> int:
                       "max_abs_err": main_err[kname], **t32[kname]})
     print(f"serve parity worst: dense {dense['worst']:.3e}, blocked "
           f"{blocked['worst']:.3e}")
+    print(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": lines}))
     print(json.dumps({"ok": True, "device": {

@@ -1,23 +1,18 @@
 """Per-architecture configs (``--arch <id>``), port of ``repro.configs``.
 
-The decoder-only architectures are ported: dense (llama3.2-3b,
-llama3-8b, gemma2-2b, gemma2-9b), MoE (qwen3-moe-30b-a3b,
-qwen3-moe-235b-a22b), SSM (mamba2-1.3b) and hybrid (jamba-v0.1-52b),
-with ``CONFIG`` and ``SMOKE`` exactly as in the reference, and
-``get_tuned`` as the reference's. The other architectures of the
-reference are listed, so the CLI offers the same choices, and
-``get_config``/``get_smoke``/``get_tuned`` of one of them raises
-``NotImplementedError`` naming the slice that ports it.
+All ten architectures of the reference: dense (llama3.2-3b, llama3-8b,
+gemma2-2b, gemma2-9b), MoE (qwen3-moe-30b-a3b, qwen3-moe-235b-a22b), SSM
+(mamba2-1.3b), hybrid (jamba-v0.1-52b), audio encoder-decoder
+(whisper-base) and VLM (pixtral-12b), with ``CONFIG`` and ``SMOKE``
+exactly as in the reference, and ``get_tuned`` as the reference's.
 """
 import dataclasses
 import importlib
 
-from repro_torch.roadmap import queue
-
-__all__ = ["ARCHS", "LATER", "get_config", "get_smoke", "get_tuned",
-           "list_archs"]
+__all__ = ["ARCHS", "get_config", "get_smoke", "get_tuned", "list_archs"]
 
 ARCHS = {
+    "whisper-base": "repro_torch.configs.whisper_base",
     "gemma2-9b": "repro_torch.configs.gemma2_9b",
     "gemma2-2b": "repro_torch.configs.gemma2_2b",
     "llama3.2-3b": "repro_torch.configs.llama32_3b",
@@ -26,33 +21,20 @@ ARCHS = {
     "qwen3-moe-235b-a22b": "repro_torch.configs.qwen3_moe_235b",
     "qwen3-moe-30b-a3b": "repro_torch.configs.qwen3_moe_30b",
     "jamba-v0.1-52b": "repro_torch.configs.jamba_52b",
-}
-
-# architecture → what the reference needs that the port does not have yet
-LATER = {
-    "whisper-base": "the encoder-decoder trunk (models/encdec.py)",
-    "pixtral-12b": "the VLM front end (patch-embedding prefix)",
+    "pixtral-12b": "repro_torch.configs.pixtral_12b",
 }
 
 
 def list_archs():
-    return sorted({**ARCHS, **LATER})
-
-
-def _module(name: str):
-    if name in LATER:
-        raise NotImplementedError(
-            f"{name} needs {LATER[name]}, which a later slice of the model "
-            f"zoo ports ({queue('models')})")
-    return importlib.import_module(ARCHS[name])
+    return sorted(ARCHS)
 
 
 def get_config(name: str):
-    return _module(name).CONFIG
+    return importlib.import_module(ARCHS[name]).CONFIG
 
 
 def get_smoke(name: str):
-    return _module(name).SMOKE
+    return importlib.import_module(ARCHS[name]).SMOKE
 
 
 def get_tuned(name: str, kind: str = "train"):
@@ -60,8 +42,9 @@ def get_tuned(name: str, kind: str = "train"):
     ``kind`` ("train", "prefill", "decode"), as ``repro.configs.get_tuned``
     sets them:
 
-    * attention archs: ``attn_seq_shard`` and ``attn_bf16``, except for
-      the MoE family's serving kinds;
+    * attention archs and the encoder-decoder ("encdec", "audio")
+      families: ``attn_seq_shard`` and ``attn_bf16``, except for the MoE
+      family's serving kinds;
     * SSM/hybrid archs: ``ssd_factored``, ``ssd_bf16`` and ``ssd_shard``;
     * qwen3-moe-235b: ``remat="full"``; jamba: ``moe_ep_over_data``.
 

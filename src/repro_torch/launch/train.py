@@ -152,12 +152,12 @@ def make_score_grads(api, *, score_chunk=None, score_dtype=None, scale=None):
 
 def make_prefill(api):
     """``prefill(params, batch) -> (logits (B, 1, V), cache, next_index)``
-    for a prompt batch ``{"tokens": (B, T)[, "max_len"]}``."""
+    for a prompt batch ``{"tokens": (B, T)[, "max_len"][, "frames"][,
+    "prefix_embeds"]}``; its arrays are moved to the parameters' device."""
     def prefill(params, batch):
-        batch = dict(batch)
-        batch["tokens"] = batch_to({"t": batch["tokens"]},
-                                   _device(params))["t"]
-        return api.prefill(params, batch)
+        arrays = {k: v for k, v in batch.items() if k != "max_len"}
+        return api.prefill(params, {**batch,
+                                    **batch_to(arrays, _device(params))})
     return prefill
 
 

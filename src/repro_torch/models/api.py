@@ -2,10 +2,10 @@
 serving front and the trainer talk to.
 
 ``get_api(cfg)`` returns a ``ModelAPI`` whose members close over the
-config. The decoder-only families are ported: dense, MoE, SSM (Mamba2)
-and hybrid (jamba). The encoder-decoder and audio families, and configs
-with cross-attention slots, raise ``NotImplementedError`` until their
-slice. ``param_specs`` and ``make_input_specs`` (the reference's dry-run
+family dispatch: the encoder-decoder and audio families through
+``models.encdec`` (a batch carries ``frames``), every other family
+through ``models.lm`` (a VLM batch carries ``prefix_embeds``).
+``param_specs`` and ``make_input_specs`` (the reference's dry-run
 stand-ins) wait with the launch tooling.
 """
 from __future__ import annotations
@@ -15,9 +15,8 @@ from typing import Callable
 
 import torch
 
-from repro_torch.models import lm
+from repro_torch.models import encdec, lm
 from repro_torch.models.config import ModelConfig
-from repro_torch.roadmap import queue
 
 __all__ = ["ModelAPI", "get_api"]
 
@@ -33,16 +32,39 @@ class ModelAPI:
     sample_logp: Callable           # logp(params, ex) -> scalar (score-matrix rows)
 
 
+def _is_encdec(cfg):
+    return cfg.family in ("encdec", "audio")
+
+
 def get_api(cfg: ModelConfig) -> ModelAPI:
-    if cfg.family in ("encdec", "audio"):
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder trunk (models/encdec.py) comes "
-            f"with a later slice of the model zoo ({queue('models')})")
-    later = [s for s in cfg.slots if s.cross_attn]
-    if later:
-        raise NotImplementedError(
-            f"{cfg.name}: {later[0]} needs a block a later slice of the "
-            f"model zoo ports ({queue('models')})")
+    if _is_encdec(cfg):
+        def init_params(gen: torch.Generator, device=None):
+            return encdec.init_params(gen, cfg, device)
+
+        def loss(params, batch):
+            return encdec.loss(params, cfg, batch)
+
+        def prefill(params, batch):
+            logits, cache, idx, _ = encdec.prefill(
+                params, cfg, batch["frames"], batch["tokens"],
+                max_len=batch.get("max_len", cfg.max_target_positions))
+            return logits, cache, idx
+
+        def decode_step(params, cache, idx, tokens):
+            return encdec.decode_step(params, cfg, cache, idx, tokens)
+
+        def init_cache(batch, max_len, device=None):
+            return lm.init_cache(cfg, batch, max_len, enc_len=cfg.enc_seq,
+                                 device=device)
+
+        def sample_logp(params, ex):
+            enc_out = encdec.encode(params, cfg, ex["frames"][None])
+            ex2 = {k: v for k, v in ex.items() if k != "frames"}
+            return lm.sample_logp(params["dec"], cfg,
+                                  {**ex2, "enc_out": enc_out[0]})
+
+        return ModelAPI(cfg, init_params, loss, prefill, decode_step,
+                        init_cache, sample_logp)
 
     def init_params(gen: torch.Generator, device=None):
         return lm.init_params(gen, cfg, device)
@@ -51,6 +73,9 @@ def get_api(cfg: ModelConfig) -> ModelAPI:
         return lm.lm_loss(params, cfg, batch)
 
     def prefill(params, batch):
+        # max_len defaults to the tokens + 1, as the reference's: a prefix
+        # then does not fit, and lm.prefill raises (the reference decodes
+        # from a cache too short for it)
         return lm.prefill(params, cfg, batch["tokens"],
                           max_len=batch.get("max_len",
                                             batch["tokens"].shape[1] + 1),

@@ -1,5 +1,7 @@
-"""Decoder-only LM trunk (port of ``repro/models/lm.py``): attention,
-Mamba2 and MoE slots, so the dense, MoE, SSM and hybrid families.
+"""The LM trunk (port of ``repro/models/lm.py``): attention, Mamba2, MoE
+and cross-attention slots, so the dense, MoE, SSM and hybrid families,
+the VLM (a patch prefix before the tokens) and the decoder of the
+encoder-decoder trunk (``models/encdec.py``).
 
 Parameters are explicit trees: ``{"embed", "final_norm", "blocks"[,
 "head"]}`` where ``blocks`` is a list with one dict per slot of the
@@ -10,7 +12,8 @@ drivers loop over the repeats in Python and index the stacked leaves
 * ``run_stack``         — train / eval (the score pass runs it under
   ``torch.func.vmap(grad)``);
 * ``run_stack_prefill`` — also emits the per-layer KV rows (a Mamba2
-  slot: its conv and SSM states);
+  slot: its conv and SSM states; a cross-attention slot: also the
+  encoder's projected keys and values ``ck``/``cv``);
 * ``run_stack_decode``  — one token in, the cache written in place.
 
 Prefill routes a layer's self-attention through the flash-attention
@@ -24,14 +27,17 @@ kernel), decode (``kv_len``, ring positions), a softcapped model, an fp32
 model with ``attn_bf16``, a head_dim the kernels lack — runs the
 blockwise attention of ``models.layers``, as the reference does
 everywhere. The rule reads shapes, dtypes and the config only, so it
-routes a CPU run as it routes the card's.
+routes a CPU run as it routes the card's. A cross-attention layer at
+prefill (the decoder's queries against the encoder's frames) takes the
+kernel wherever the shapes are supported: the reference's cross-attention
+has no softcap and no ``attn_bf16`` rounding.
 
 Initialization draws from an explicit CPU ``torch.Generator`` and moves
 each draw to the device asked for, so one seed gives the same weights on
 every device. Shapes, scales and dtypes are the reference's, not its
-bits (``jax.random`` and torch draw different numbers). Cross-attention
-slots (the encoder-decoder trunk) come with a later slice and raise
-``NotImplementedError``.
+bits (``jax.random`` and torch draw different numbers). The reference
+draws a cross-attention slot's ``xq`` and ``xo`` from one key, so at
+d = H·hd they are one matrix; the port draws them apart.
 """
 from __future__ import annotations
 
@@ -44,7 +50,6 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import supported as flash_supported
 from repro_torch.models import layers as L
 from repro_torch.models.config import BlockSlot, ModelConfig
-from repro_torch.roadmap import queue
 
 __all__ = ["block_apply", "chunked_ce", "decode_step", "embed_tokens",
            "forward", "init_blocks", "init_cache", "init_params", "init_slot",
@@ -52,12 +57,6 @@ __all__ = ["block_apply", "chunked_ce", "decode_step", "embed_tokens",
            "run_stack_decode", "run_stack_prefill", "sample_logp", "unembed"]
 
 F32 = torch.float32
-
-
-def _later(what: str):
-    return NotImplementedError(
-        f"{what} comes with a later slice of the model zoo "
-        f"({queue('models')})")
 
 
 # ---------------------------------------------------------------------------
@@ -88,7 +87,7 @@ def _dense(gen, shape, dtype, device, scale=None):
     return (_randn(gen, shape, device) * scale).to(dtype)
 
 
-def _init_attn(gen, cfg, d, device):
+def _init_attn(gen, cfg, d, device, *, cross=False):
     H, KH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     pd = cfg.param_dtype
     p = {
@@ -98,6 +97,14 @@ def _init_attn(gen, cfg, d, device):
         "wv": _dense(gen, (d, KH * hd), pd, device),
         "wo": _dense(gen, (H * hd, d), pd, device),
     }
+    if cross:
+        p.update({
+            "xnorm": _norm_p(cfg, d, device),
+            "xq": _dense(gen, (d, H * hd), pd, device),
+            "xk": _dense(gen, (d, KH * hd), pd, device),
+            "xv": _dense(gen, (d, KH * hd), pd, device),
+            "xo": _dense(gen, (H * hd, d), pd, device),
+        })
     if cfg.use_post_norm:
         p["post_norm"] = _norm_p(cfg, d, device)
     return p
@@ -149,15 +156,13 @@ def init_slot(gen: torch.Generator, slot: BlockSlot, cfg: ModelConfig, d,
 
     A pure-SSM slot (mamba2: ``d_ff == 0``, no MoE) has no FFN sublayer:
     the Mamba2 mixer is the whole block."""
-    if slot.cross_attn:
-        raise _later("cross-attention (models/encdec.py)")
     device = torch.device("cpu" if device is None else device)
     if slot.kind == "mamba":
         p = _init_mamba(gen, cfg, d, device)
         if cfg.d_ff == 0 and not slot.moe:
             return p
     else:
-        p = _init_attn(gen, cfg, d, device)
+        p = _init_attn(gen, cfg, d, device, cross=slot.cross_attn)
     p.update(_init_ffn(gen, cfg, d, device, moe=slot.moe))
     return p
 
@@ -208,6 +213,12 @@ def _kernel_route(q, k, cfg) -> bool:
             and flash_supported(q, k))
 
 
+def _is_ring(slot, S: int) -> bool:
+    """Whether a slot's decode cache of S positions is a ring buffer (a
+    window the cache holds whole); otherwise it decodes by position."""
+    return slot.window is not None and slot.window <= S + 1
+
+
 def _self_attn(slot, p, x, cfg, *, positions, mode, cache=None,
                cache_index=None):
     """Returns (attn_out, cache_out).
@@ -224,8 +235,12 @@ def _self_attn(slot, p, x, cfg, *, positions, mode, cache=None,
 
     if mode == "decode":
         S = cache["k"].shape[1]
-        is_ring = slot.window is not None and slot.window <= S + 1
+        is_ring = _is_ring(slot, S)
         write_at = cache_index % S if is_ring else cache_index
+        if write_at >= S:
+            raise ValueError(
+                f"decode at position {cache_index} is past the cache's "
+                f"max_len {S} (a prefill's max_len counts the prefix)")
         cache["k"][:, write_at] = k[:, 0].to(cache["k"].dtype)
         cache["v"][:, write_at] = v[:, 0].to(cache["v"].dtype)
         if is_ring:
@@ -261,6 +276,31 @@ def _self_attn(slot, p, x, cfg, *, positions, mode, cache=None,
     return out, cache_out
 
 
+def _cross_attn(p, x, enc_out, cfg, *, mode, cached_kv=None):
+    """Non-causal attention of the decoder's queries to the encoder's
+    output (``enc_out``, or at decode the ``ck``/``cv`` its prefill
+    cached). No softcap and no ``attn_bf16`` rounding, as the reference's;
+    at prefill it takes the flash kernel wherever the shapes are
+    supported. Returns (out, {"ck", "cv"})."""
+    h = _apply_norm(x, p["xnorm"], cfg)
+    H, KH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = (h @ p["xq"]).reshape(*h.shape[:2], H, hd)
+    if cached_kv is None:
+        B, Te = enc_out.shape[:2]
+        k = (enc_out @ p["xk"]).reshape(B, Te, KH, hd)
+        v = (enc_out @ p["xv"]).reshape(B, Te, KH, hd)
+    else:
+        k, v = cached_kv["ck"], cached_kv["cv"]
+    if mode == "prefill" and flash_supported(q, k):
+        out = ops.flash_attention(q, k, v, causal=False,
+                                  scale=cfg.query_scale)
+    else:
+        out = L.flash_attention(q, k, v, causal=False, scale=cfg.query_scale,
+                                kv_block=min(512, k.shape[1]))
+    out = out.reshape(*out.shape[:2], -1) @ p["xo"]
+    return out, {"ck": k, "cv": v}
+
+
 def _ffn(slot, p, x, cfg):
     """Returns (out, aux): the MoE's router aux loss, else 0."""
     h = _apply_norm(x, p["ffn_norm"], cfg)
@@ -277,11 +317,12 @@ def _ffn(slot, p, x, cfg):
 
 
 def block_apply(slot: BlockSlot, p, x, cfg, *, positions, mode,
-                cache=None, cache_index=None):
+                cache=None, cache_index=None, enc_out=None):
     """One layer. Returns (x, cache_out, aux_loss). A Mamba2 slot's decode
-    writes its new conv and SSM states into ``cache`` in place."""
-    if slot.cross_attn:
-        raise _later("cross-attention (models/encdec.py)")
+    writes its new conv and SSM states into ``cache`` in place. A
+    cross-attention slot adds its attention to ``enc_out`` after the
+    self-attention; its prefill returns ``ck``/``cv`` beside ``k``/``v``,
+    and its decode reads them from ``cache``."""
     if slot.kind == "mamba":
         h = _apply_norm(x, p["norm"], cfg)
         y, new = L.mamba_block(h, p, cfg,
@@ -299,6 +340,13 @@ def block_apply(slot: BlockSlot, p, x, cfg, *, positions, mode,
             slot, p, x, cfg, positions=positions, mode=mode, cache=cache,
             cache_index=cache_index)
         x = x + attn_out
+        if slot.cross_attn:
+            xo, ckv = _cross_attn(p, x, enc_out, cfg, mode=mode,
+                                  cached_kv=cache if mode == "decode"
+                                  else None)
+            x = x + xo
+            if mode == "prefill":
+                cache_out.update(ckv)
     if "ffn_norm" not in p:          # pure-SSM block: no FFN sublayer
         return x, cache_out or {}, 0.0
     ffn_out, aux = _ffn(slot, p, x, cfg)
@@ -327,28 +375,34 @@ def _row(tree, r: int):
     return tree_map(lambda t: t[r], tree)
 
 
-def run_stack(blocks, x, cfg, *, positions):
-    """The super-block over cfg.repeats (train / eval: no cache, blockwise
-    attention; the port does not rematerialize). Returns (x, aux)."""
+def run_stack(blocks, x, cfg, *, positions, enc_out=None, mode="train"):
+    """The super-block over cfg.repeats, no cache kept (the port does not
+    rematerialize). ``mode="train"``: train / eval, blockwise attention;
+    ``"prefill"``: the layers as a prefill runs them, the flash kernel
+    where the route admits it (an encoder under the decoder's prefill,
+    no gradient taken). Returns (x, aux)."""
     aux = torch.zeros((), dtype=F32, device=x.device)
     for r in range(cfg.repeats):
         for slot, p in zip(cfg.slots, blocks):
             x, _, a = block_apply(slot, _row(p, r), x, cfg,
-                                  positions=positions, mode="train")
+                                  positions=positions, mode=mode,
+                                  enc_out=enc_out)
             aux = aux + a
     return x, aux
 
 
-def run_stack_prefill(blocks, x, cfg, *, positions):
+def run_stack_prefill(blocks, x, cfg, *, positions, enc_out=None):
     """Emitting cache rows. Returns (x, cache_list, aux): per slot, k and v
-    stacked over the repeats, (R, B, T, KH, hd), or a Mamba2 slot's conv
-    and SSM states, (R, B, K-1, conv_ch) and (R, B, nh, ds, hp)."""
+    stacked over the repeats, (R, B, T, KH, hd) (a cross-attention slot
+    also ck and cv, (R, B, Te, KH, hd)), or a Mamba2 slot's conv and SSM
+    states, (R, B, K-1, conv_ch) and (R, B, nh, ds, hp)."""
     aux = torch.zeros((), dtype=F32, device=x.device)
     rows = [[] for _ in cfg.slots]
     for r in range(cfg.repeats):
         for si, (slot, p) in enumerate(zip(cfg.slots, blocks)):
             x, c, a = block_apply(slot, _row(p, r), x, cfg,
-                                  positions=positions, mode="prefill")
+                                  positions=positions, mode="prefill",
+                                  enc_out=enc_out)
             rows[si].append(c)
             aux = aux + a
     cache = [{key: torch.stack([c[key] for c in rs]) for key in rs[0]}
@@ -356,7 +410,7 @@ def run_stack_prefill(blocks, x, cfg, *, positions):
     return x, cache, aux
 
 
-def run_stack_decode(blocks, cache, x, cfg, *, cache_index):
+def run_stack_decode(blocks, cache, x, cfg, *, cache_index, enc_out=None):
     """One token through every layer. Returns (x, cache), the cache
     written in place."""
     positions = torch.full((x.shape[0], 1), cache_index, device=x.device)
@@ -364,7 +418,8 @@ def run_stack_decode(blocks, cache, x, cfg, *, cache_index):
         for slot, p, c in zip(cfg.slots, blocks, cache):
             x, _, _ = block_apply(slot, _row(p, r), x, cfg,
                                   positions=positions, mode="decode",
-                                  cache=_row(c, r), cache_index=cache_index)
+                                  cache=_row(c, r), cache_index=cache_index,
+                                  enc_out=enc_out)
     return x, cache
 
 
@@ -408,12 +463,14 @@ def _trunk_input(params, cfg, tokens, prefix_embeds=None):
     return x
 
 
-def forward(params, cfg: ModelConfig, tokens, *, prefix_embeds=None):
+def forward(params, cfg: ModelConfig, tokens, *, prefix_embeds=None,
+            enc_out=None):
     """tokens: (B, T) int. prefix_embeds: (B, P, D) multimodal prefix.
+    enc_out: (B, Te, D) the encoder's output, for cross-attention slots.
     Returns (logits (B, T[+P], V) fp32, aux)."""
     x = _trunk_input(params, cfg, tokens, prefix_embeds)
     x, aux = run_stack(params["blocks"], x, cfg,
-                       positions=_positions_like(x))
+                       positions=_positions_like(x), enc_out=enc_out)
     x = _apply_norm(x, params["final_norm"], cfg)
     return unembed(params, cfg, x), aux
 
@@ -449,7 +506,8 @@ def sample_logp(params, cfg: ModelConfig, ex):
     batch1 = {key: val[None] for key, val in ex.items()}
     x = _trunk_input(params, cfg, batch1["inputs"],
                      batch1.get("prefix_embeds"))
-    x, _ = run_stack(params["blocks"], x, cfg, positions=_positions_like(x))
+    x, _ = run_stack(params["blocks"], x, cfg, positions=_positions_like(x),
+                     enc_out=batch1.get("enc_out"))
     x = _apply_norm(x, params["final_norm"], cfg)
     P = x.shape[1] - batch1["labels"].shape[1]
     if P > 0:
@@ -461,9 +519,11 @@ def sample_logp(params, cfg: ModelConfig, ex):
 
 def lm_loss(params, cfg: ModelConfig, batch):
     """batch: {"inputs": (B,T), "labels": (B,T), optional "mask",
-    optional "prefix_embeds"}. Returns (loss, {"nll", "aux"})."""
+    optional "prefix_embeds", optional "enc_out"}. Returns (loss,
+    {"nll", "aux"})."""
     x = _trunk_input(params, cfg, batch["inputs"], batch.get("prefix_embeds"))
-    x, aux = run_stack(params["blocks"], x, cfg, positions=_positions_like(x))
+    x, aux = run_stack(params["blocks"], x, cfg, positions=_positions_like(x),
+                       enc_out=batch.get("enc_out"))
     x = _apply_norm(x, params["final_norm"], cfg)
     P = x.shape[1] - batch["labels"].shape[1]
     if P > 0:
@@ -477,10 +537,12 @@ def lm_loss(params, cfg: ModelConfig, batch):
 # cache init / prefill / decode
 # ---------------------------------------------------------------------------
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device=None):
-    """Zero cache: a list per slot of stacked (R, batch, S, KH, hd) k, v,
-    or a Mamba2 slot's (R, batch, K-1, conv_ch) conv and (R, batch, nh,
-    ds, hp) SSM states, all in ``param_dtype``."""
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, enc_len=0,
+               device=None):
+    """Zero cache: a list per slot of stacked (R, batch, S, KH, hd) k, v
+    (a cross-attention slot also (R, batch, enc_len, KH, hd) ck, cv), or a
+    Mamba2 slot's (R, batch, K-1, conv_ch) conv and (R, batch, nh, ds, hp)
+    SSM states, all in ``param_dtype``."""
     KH, hd, R = cfg.n_kv_heads, cfg.head_dim, cfg.repeats
     shapes = {"conv": (R, batch, cfg.ssm_conv - 1,
                        cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state),
@@ -493,23 +555,44 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device=None):
         else:
             S = min(max_len, slot.window) if slot.window else max_len
             shapes["k"] = shapes["v"] = (R, batch, S, KH, hd)
-            keys = ("k", "v")
+            shapes["ck"] = shapes["cv"] = (R, batch, enc_len, KH, hd)
+            keys = ("k", "v", "ck", "cv") if slot.cross_attn else ("k", "v")
         cache.append({key: torch.zeros(shapes[key], dtype=cfg.param_dtype,
                                        device=device) for key in keys})
     return cache
 
 
+def _check_fits(cfg, T: int, P: int, max_len: int) -> None:
+    """Raise unless every slot that decodes by position (not a ring) holds
+    the prompt's T = P + tokens positions. The reference lays a longer
+    prompt out as a ring there too, and its decode then writes at a
+    clamped position and reads the wrong keys."""
+    for slot in cfg.slots:
+        if slot.kind == "mamba":
+            continue
+        S = min(max_len, slot.window) if slot.window else max_len
+        if not _is_ring(slot, S) and T > S:
+            raise ValueError(
+                f"prefill of {T} positions ({P} prefix + {T - P} tokens) "
+                f"does not fit max_len={max_len}: max_len counts the prefix")
+
+
 def prefill(params, cfg: ModelConfig, tokens, *, max_len: int,
-            prefix_embeds=None):
+            prefix_embeds=None, enc_out=None):
     """Forward pass that also builds the decode cache.
 
     Returns (logits (B, 1, V) of the last position, cache, next_index).
     Windowed slots get their last ``window`` keys laid out in ring-buffer
-    order (see ``_self_attn``)."""
+    order (see ``_self_attn``); a cross-attention slot's cache also holds
+    the encoder's keys and values ``ck``/``cv`` for ``enc_out``.
+    ``max_len`` counts the prefix: a prompt longer than a slot that
+    decodes by position raises ``ValueError``."""
     x = _trunk_input(params, cfg, tokens, prefix_embeds)
     T = x.shape[1]
+    _check_fits(cfg, T, T - tokens.shape[1], max_len)
     x, cache_rows, _ = run_stack_prefill(params["blocks"], x, cfg,
-                                         positions=_positions_like(x))
+                                         positions=_positions_like(x),
+                                         enc_out=enc_out)
     x = _apply_norm(x, params["final_norm"], cfg)
     # serving needs the last position's logits only
     logits = unembed(params, cfg, x[:, -1:])
@@ -529,17 +612,25 @@ def prefill(params, cfg: ModelConfig, tokens, *, max_len: int,
         elif T < S:
             k = F.pad(k, (0, 0, 0, 0, 0, S - T))
             v = F.pad(v, (0, 0, 0, 0, 0, S - T))
-        cache.append({"k": k.contiguous(), "v": v.contiguous()})
+        out = {"k": k.contiguous(), "v": v.contiguous()}
+        if slot.cross_attn:
+            out["ck"], out["cv"] = c["ck"], c["cv"]
+        cache.append(out)
     return logits, cache, T
 
 
-def decode_step(params, cfg: ModelConfig, cache, cache_index: int, tokens):
+def decode_step(params, cfg: ModelConfig, cache, cache_index: int, tokens,
+                *, enc_out=None):
     """tokens: (B, 1). Returns (logits (B, 1, V), cache) — the cache is
-    written in place."""
+    written in place. A learned position past the table's last row reads
+    the last row, as the reference's clamped index does. A
+    cross-attention slot reads the ``ck``/``cv`` its prefill cached;
+    ``enc_out`` is kept for the signature."""
     x = embed_tokens(params, cfg, tokens)
     if cfg.pos_embed == "learned":
-        x = x + params["pos_embed"][cache_index][None, None].to(x.dtype)
+        row = min(int(cache_index), params["pos_embed"].shape[0] - 1)
+        x = x + params["pos_embed"][row][None, None].to(x.dtype)
     x, cache = run_stack_decode(params["blocks"], cache, x, cfg,
-                                cache_index=cache_index)
+                                cache_index=cache_index, enc_out=enc_out)
     x = _apply_norm(x, params["final_norm"], cfg)
     return unembed(params, cfg, x), cache

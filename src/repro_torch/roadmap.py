@@ -7,7 +7,6 @@ from __future__ import annotations
 __all__ = ["QUEUES", "queue"]
 
 QUEUES = {
-    "models": ("A6", "the other model families"),
     "sharded": ("A7", "the sharded tier"),
     "fleet": ("A8", "the fleet"),
     "launch": ("A9", "launch tooling"),
@@ -15,6 +14,6 @@ QUEUES = {
 
 
 def queue(key: str) -> str:
-    """'ROADMAP A6 (the other model families)' for ``key`` = 'models'."""
+    """'ROADMAP A7 (the sharded tier)' for ``key`` = 'sharded'."""
     label, what = QUEUES[key]
     return f"ROADMAP {label} ({what})"

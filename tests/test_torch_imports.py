@@ -32,7 +32,9 @@ def test_port_imports_no_jax_and_no_repro():
                      "curvature.cache", "curvature.audit", "tenants.delta",
                      "tenants.manager",
                      "kernels.flash_attention", "models", "models.config",
-                     "models.layers", "models.lm", "models.api", "configs",
+                     "models.layers", "models.lm", "models.api",
+                     "models.encdec", "configs.whisper_base",
+                     "configs.pixtral_12b", "configs",
                      "configs.shapes", "configs.llama32_3b",
                      "configs.llama3_8b", "configs.gemma2_2b",
                      "configs.gemma2_9b", "data", "data.pipeline", "launch",

@@ -197,8 +197,13 @@ def test_ported_server_options_construct(option, tmp_path):
 
 
 def test_not_ported_arch_raises_in_the_cli():
-    with pytest.raises(NotImplementedError, match="A6"):
-        serve_main(["--arch", "whisper-base", "--device", "cpu"])
+    """A retired refusal (ROADMAP A6 is ported), under its old name:
+    ``--arch whisper-base`` parses and asks for no later slice."""
+    args = _parser().parse_args(["--arch", "whisper-base", "--device", "cpu",
+                                 "--decode-tokens", "0"])
+    assert args.arch == "whisper-base" and args.decode_tokens == 0
+    assert not any(asked for asked, _ in _later_flags(args).values())
+    assert tconfigs.get_smoke(args.arch).family == "audio"
 
 
 def test_entry_point_defaults_to_cuda():

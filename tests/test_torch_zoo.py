@@ -63,20 +63,16 @@ def test_configs_equal_the_reference(arch):
         t = dataclasses.asdict(getattr(tconfigs, getter)(arch))
         j = dataclasses.asdict(getattr(jconfigs, getter)(arch))
         assert t == j, (arch, getter)
-    assert arch in tconfigs.ARCHS and arch not in tconfigs.LATER
-    assert sorted(tconfigs.LATER) == ["pixtral-12b", "whisper-base"]
+    assert arch in tconfigs.ARCHS and not hasattr(tconfigs, "LATER")
+    assert sorted(tconfigs.ARCHS) == jconfigs.list_archs()
 
 
 @pytest.mark.parametrize("kind", ["train", "prefill"])
 def test_get_tuned_matches_the_reference(kind):
-    """Every architecture of the reference: the same levers on the same
-    config; whisper and pixtral still wait for their slice."""
+    """Every architecture of the reference, whisper and pixtral among
+    them: the same levers on the same config."""
     assert tconfigs.list_archs() == jconfigs.list_archs()
     for arch in jconfigs.list_archs():
-        if arch in tconfigs.LATER:
-            with pytest.raises(NotImplementedError, match="A6"):
-                tconfigs.get_tuned(arch, kind=kind)
-            continue
         t = dataclasses.asdict(tconfigs.get_tuned(arch, kind=kind))
         j = dataclasses.asdict(jconfigs.get_tuned(arch, kind=kind))
         assert t == j, (arch, kind)
@@ -84,6 +80,8 @@ def test_get_tuned_matches_the_reference(kind):
     assert ssm.ssd_factored and ssm.ssd_bf16
     assert tconfigs.get_tuned("qwen3-moe-30b-a3b", kind=kind).attn_bf16 \
         == (kind == "train")
+    for arch in ("whisper-base", "pixtral-12b"):
+        assert tconfigs.get_tuned(arch, kind=kind).attn_bf16
 
 
 # ---------------------------------------------------------------------------
