@@ -64,6 +64,21 @@ Phases, each printing its own lines:
    evictions and activations, the same trace without a budget bit for
    bit, on the CPU within 5e-3 with the same residency, the shared W and
    L unchanged;
+10b. the sharded serving tier — the trace of 4 through ``AsyncSolveServer``
+   (``repro_torch.dist``): replicated (every response bit for bit the
+   eager server's), then over a mesh of 4 positions laid on the card in
+   the 1d, 2d (2 × 2) and blocked layouts, a bf16 window (1d) and m =
+   100,002 (1d, zero-padded to the mesh): every response within 5e-3 of
+   the eager server's on the card and of the CPU's, each kernel launched
+   once a piece as the layout implies (m = 100,002 appends zero columns,
+   so phase 4's responses with zeros appended are its references); a second 1d run and one whose
+   submitting thread sleeps at seeded random points bit for bit the
+   first; p50, p99 and req/s beside the eager run's;
+10c. sharded Algorithm 1 — ``sharded_chol_solve`` (1d) and
+   ``sharded_chol_solve_2d`` at (1024, 100_000) on 4 positions against the
+   plain ``chol_solve`` (1e-3); the rank-16 update and downdate with their
+   columns sharded, composed and as a ring of rotation sweeps, against the
+   replicated ``cholupdate`` (CHOLUP_TOL);
 11. streaming curvature — ``CurvatureCache`` at 512 × 100_000 over 6
    solves of a drifting window against the card's plain ``chol_solve``
    and the same trace on the CPU; ``StreamingGram`` over the 4 blocks;
@@ -102,6 +117,13 @@ Phases, each printing its own lines:
    plain re-solve with the same tenant factor, the tenants line with
    evictions; then ``--smoke --tenants 4`` on the card and on the CPU:
    the first nine losses within 1e-3, equal tenants lines;
+13d. LM serving CLI, sharded — ``serve_main --full --n-layers 2 --mesh 1d
+   --async`` (the default ``--mesh-shape 1,1``: the whole 19 GB window one
+   slab): its peak memory, ``fold_cols``, ``sv_cross`` and ``serve_apply``
+   launched as one slab implies, the exit checkpoint restored onto the
+   card and equal to the live slab, W, L, counters and params; then
+   ``--smoke --mesh 1d --async`` on the card and on the CPU, the first
+   nine losses within 1e-3;
 13b. LM NGD trainer — the same 2-layer full-width llama3.2-3b in bf16
    under ``build_trainer`` (batch 8, seq 64, λ = 1e-3, lr 0.05; n = 8,
    m = 595,344,384): (a) 3 exact dense steps through
@@ -117,7 +139,7 @@ Phases, each printing its own lines:
    profile showing the wgmma kernel; layer 0's attention at that shape
    against the plain version;
 14a. LM serving, MoE and Mamba2 — (a) mamba2-1.3b at published widths,
-   16 of 48 layers, bf16 weights, an fp32 window (m = 516,805,632), and
+   8 of 48 layers, bf16 weights, an fp32 window, and
    (b) qwen3-moe-30b-a3b, 1 of 48 layers (128 experts top-8), a bf16
    window (m = 1,245,976,576), bursts of 1: phase 13's trace and gates
    each, ``fold_cols`` launched, flash attention once an attention layer
@@ -175,6 +197,7 @@ import gc
 import io
 import json
 import os
+import random
 import shutil
 import subprocess
 import sys
@@ -198,8 +221,13 @@ from repro_torch.checkpoint import checkpoint as ckpt_io  # noqa: E402
 from repro_torch.core import (BlockedScores, chol_factorize,  # noqa: E402
                               chol_solve, is_blocked)
 from repro_torch.core.pytree import leaves, tree_map  # noqa: E402
+from repro_torch.core.distributed import (  # noqa: E402
+    sharded_chol_solve, sharded_chol_solve_2d)
 from repro_torch.curvature import (CurvatureCache,  # noqa: E402
                                    StreamingCurvature, StreamingGram)
+from repro_torch.dist import (AsyncSolveServer, DistSpec,  # noqa: E402
+                              init_sharded_serve_state,
+                              sharded_chol_downdate, sharded_chol_update)
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels.gram import ROUTES as GRAM_ROUTES  # noqa: E402
 from repro_torch.kernels.gram import tensor_core_route  # noqa: E402
@@ -207,6 +235,7 @@ from repro_torch.kernels.ref import WGMMA_HEAD_DIMS  # noqa: E402
 from repro_torch.kernels.serve_solve import ROUTES as STREAM_ROUTES  # noqa: E402
 from repro_torch.kernels.serve_solve import (  # noqa: E402
     cross_tensor_cores, kernels_launched, stream_route_of, trisolve_columns)
+from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.launch.train import (batch_to, make_prefill,  # noqa: E402
                                       make_serve_step)
 from repro_torch.launch.trainer import (build_server,  # noqa: E402
@@ -247,6 +276,10 @@ UNALIGNED = [(256, 20_001, 0), (128, 4096, 1)]
 STREAMED = {"sv_cross": 1, "serve_apply": 1, "serve_solve": 1, "fold_cols": 2}
 SWEEP_K = (1, 5, 8, 16)
 REQUESTS, PER_MB, ROWS_PER_REQ, MIXED_MB = 64, 8, 2, 3
+# The sharded serving tier (ROADMAP A7, first half): the trace over a mesh
+# of 4 positions laid on the one card, and at m = PAD_M, not a multiple of
+# 4 (the zero-padded window)
+SHARD_POSITIONS, PAD_M = 4, M + 2
 SEED = 0
 TABLE1 = [(256, M), (1024, M), (2048, M)]   # configs/paper.py Table-1 rows
 # the blocked kernel's edges: 1, one ragged tile (15, 17), one tile (16,
@@ -382,15 +415,16 @@ TRAIN_LOSS_GATE, TRAIN_RES_GATE = 1e-3, 1e-3
 # half) at published widths, cut in depth so that the serving window of
 # n = 8 score rows and a fold's copy of it fit the card; bf16 weights.
 # (arch, layers, window dtype, burst):
-# - mamba2-1.3b, 16 of 48 layers: m = 516,805,632, an fp32 window of
-#   16.54 GB (all 48: 43.0 GB, 86 with the copy);
+# - mamba2-1.3b, 8 of 48 layers, an fp32 window (16 layers, m =
+#   516,805,632, a 16.54 GB window, until the sharded phases needed the
+#   script's time; all 48: 43.0 GB, 86 with the copy);
 # - qwen3-moe-30b-a3b, 1 of 48 layers (128 experts of 2048 × 768): m =
 #   1,245,976,576, a bf16 window (storage only) of 19.94 GB. Bursts of 1:
 #   each pending request holds its fp32 v (4.98 GB) and its rows (4.98 GB),
 #   and a microbatch's V, Sᵀw and x are 4.98 GB a request each, so a
 #   burst of 3 beside the window and its copy would not fit.
 # Phase 13's trace and gates otherwise (LM_* above).
-ZOO_SERVED = (("mamba2-1.3b", 16, None, LM_BURST),
+ZOO_SERVED = (("mamba2-1.3b", 8, None, LM_BURST),
               ("qwen3-moe-30b-a3b", 1, "bfloat16", 1))
 # mamba2-1.3b at all 48 layers, fp32 (5.38 GB): prefill of a 1,024-token
 # prompt at batch 2, then 16 teacher-forced decode steps against the
@@ -723,7 +757,8 @@ def split(t, blocked):
     return tuple(p.contiguous() for p in torch.split(t, WIDTHS, dim=-1))
 
 
-def drive(S, vs, rows, lams, device, blocked, hooks=None):
+def drive(S, vs, rows, lams, device, blocked, hooks=None,
+          window_dtype=None):
     """Serve the trace on ``device``; returns (responses, final state,
     metrics summary, initial state). ``hooks``: ``{"adaptation": kwargs,
     "server": kwargs}`` of the measured server (the journal, audit and
@@ -731,7 +766,8 @@ def drive(S, vs, rows, lams, device, blocked, hooks=None):
     dev = torch.device(device)
     Sd = S.to(dev)
     Sd = BlockedScores.from_dense(Sd, WIDTHS) if blocked else Sd
-    state = init_serve_state(Sd, LAM0, device=device)
+    state = init_serve_state(Sd, LAM0, device=device,
+                             window_dtype=window_dtype)
     vs = [split(v.to(dev), blocked) for v in vs]
     rows = [split(r.to(dev), blocked) for r in rows]
 
@@ -811,7 +847,7 @@ def main_path(trace, blocked: bool) -> dict:
                              f"{routes}")
     require_vector_streaming(f"{kind} serving", seen)
     return {"counts": counts, "worst": worst, "W": w_err, "L": l_err,
-            "summary": summary, "responses": gx}
+            "summary": summary, "responses": gx, "cpu": cx}
 
 
 def observed_path(trace, dense: dict) -> dict:
@@ -1758,6 +1794,286 @@ def tenant_serving_path(trace) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 10b. the sharded serving tier: AsyncSolveServer on a 4-position mesh
+# ---------------------------------------------------------------------------
+
+def shard_mesh(layout: str, device="cuda"):
+    """The trace's mesh: 4 positions laid on one device, (4,) ("model",)
+    or, for 2d, (2, 2) ("data", "model")."""
+    if layout == "2d":
+        return make_mesh((2, 2), ("data", "model"),
+                         devices=[device] * SHARD_POSITIONS)
+    return make_mesh((SHARD_POSITIONS,), ("model",),
+                     devices=[device] * SHARD_POSITIONS)
+
+
+def pad_trace(trace):
+    """The dense trace at m = PAD_M: PAD_M − M more columns of zeros in the
+    window, v and rows. m is not a multiple of the mesh, so the window is
+    zero-padded and every slab boundary moves off the even split of M;
+    the system is the dense trace's with those columns' x = 0, so its
+    eager and CPU responses are phase 4's with PAD_M − M zeros."""
+    S, vs, rows, lams = trace
+    extra = PAD_M - M
+    S = torch.cat([S, S.new_zeros((N, extra))], 1)
+    vs = [torch.cat([v, v.new_zeros((extra,))]) for v in vs]
+    rows = [torch.cat([r, r.new_zeros((ROWS_PER_REQ, extra))], 1)
+            for r in rows]
+    return S, vs, rows, lams
+
+
+def drive_async(S, vs, rows, lams, device, layout=None, window_dtype=None,
+                sleep_seed=None):
+    """The trace through ``AsyncSolveServer``: replicated (``layout``
+    None) or sharded over ``shard_mesh(layout)``; a warm-up on a throwaway
+    server first, as ``drive``. ``sleep_seed``: the submitting thread
+    sleeps 0, 0.5 or 2 ms at random before each call. Returns (responses,
+    the final sharded or plain state, the metrics summary, launches)."""
+    dev = torch.device(device)
+    Sd = S.to(dev)
+    blocked = layout == "blocked"
+    Sd = BlockedScores.from_dense(Sd, WIDTHS) if blocked else Sd
+    if layout is None:
+        state = init_serve_state(Sd, LAM0, device=device,
+                                 window_dtype=window_dtype)
+    else:
+        state = init_sharded_serve_state(
+            Sd, LAM0, spec=DistSpec(shard_mesh(layout, device), layout),
+            device=device, window_dtype=window_dtype)
+    del Sd
+    vs = [split(v.to(dev), blocked) for v in vs]
+    rows = [split(r.to(dev), blocked) for r in rows]
+    rng = random.Random(sleep_seed)
+
+    def pause():
+        if sleep_seed is not None:
+            time.sleep(rng.choice((0.0, 0.0, 0.0005, 0.002)))
+
+    def server(st):
+        return AsyncSolveServer(
+            st, batcher=TokenBudgetBatcher(max_requests=PER_MB),
+            adaptation=OnlineAdaptation(refresh_every=4),
+            monitor_drift=False, fused=True)
+
+    with server(state) as warm:
+        for i in range(PER_MB):
+            warm.submit(vs[i], rows=rows[i])
+        warm.flush(timeout=600)
+        for i in range(PER_MB):
+            warm.submit(vs[i], damping=lams[MIXED_MB * PER_MB + i],
+                        rows=rows[i])
+        warm.flush(timeout=600)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    ops.reset_launch_counts()       # count the measured trace only
+    out = {}
+    with server(state) as srv:
+        for b in range(0, REQUESTS, PER_MB):
+            uids = {}
+            for i in range(b, b + PER_MB):
+                pause()
+                uids[srv.submit(vs[i], damping=lams[i], rows=rows[i])] = i
+            pause()
+            for res in srv.flush(timeout=600):
+                x = torch.cat(res.x) if blocked else res.x
+                out[uids[res.uid]] = x.float().cpu()
+        final = srv.sharded_state() if layout is not None else srv.state
+        summary = srv.metrics.summary()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return out, final, summary, ops.launch_counts()
+
+
+def expected_shard_launches(final) -> dict:
+    """The launches a sharded trace implies: each microbatch one
+    ``sv_cross`` and one ``serve_apply`` a piece (a piece: one block's
+    slab at one data row), each uniform microbatch one substitution, each
+    fold one ``fold_cols`` a piece, each refresh a Gram a column slab of
+    each block (``gram`` on a slab's first block, ``gram_acc`` on the
+    others) and one Cholesky."""
+    S = final.state.S
+    pieces = sum(1 for _ in S.slab_pieces())
+    slabs, blocks = SHARD_POSITIONS // S.spec.n_mult, len(S.pieces)
+    st = final.stats
+    mbs, refreshes = st.microbatches, st.refreshes
+    folds = st.adapted // ROWS_PER_REQ
+    return {"sv_cross": mbs * pieces, "serve_apply": mbs * pieces,
+            "trisolve": mbs - 1, "fold_cols": folds * pieces,
+            "gram": refreshes * slabs, "gram_acc": refreshes * slabs *
+            (blocks - 1), "cholesky": refreshes, "serve_solve": 0}
+
+
+def sharded_serving_path(trace, dense: dict) -> dict:
+    """The dense trace through ``AsyncSolveServer``: replicated, then on a
+    4-position mesh on the card in the 1d, 2d and blocked layouts, with a
+    bf16 window (1d) and at m = PAD_M (1d, zero-padded). Gates: the
+    replicated responses bit for bit the eager server's (phase 4); every
+    sharded layout within SERVE_GATE of the eager server's responses on
+    the card and of the same trace on the CPU (phase 4's runs, at PAD_M
+    with zeros appended; for bf16 eager runs of its own); a second 1d run
+    and one whose submitting thread sleeps at seeded random points bit
+    for bit the first; each kernel launched as often as the pieces
+    imply."""
+    counts_all = {}
+
+    def padded(xs):
+        return {i: torch.cat([x, x.new_zeros(PAD_M - M)])
+                for i, x in xs.items()}
+    eager = {"fp32": (dense["responses"], dense["cpu"], dense["summary"]),
+             "pad": (padded(dense["responses"]), padded(dense["cpu"]),
+                     dense["summary"])}
+    t0 = time.perf_counter()
+    ptrace = pad_trace(trace)
+    gx, _, summary, _ = drive(*trace, "cuda", False,
+                              window_dtype=torch.bfloat16)
+    cx, _, _, _ = drive(*trace, "cpu", False, window_dtype=torch.bfloat16)
+    eager["bf16"] = (gx, cx, summary)
+    print(f"  eager references, bf16 window, on the card and the CPU: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    cases = (("replicated", None, "fp32", trace, None),
+             ("1d", "1d", "fp32", trace, None),
+             ("2d", "2d", "fp32", trace, None),
+             ("blocked", "blocked", "fp32", trace, None),
+             ("1d, bf16 window", "1d", "bf16", trace, torch.bfloat16),
+             (f"1d, m = {PAD_M:,}", "1d", "pad", ptrace, None))
+    first_1d = None
+    for label, layout, ref_key, tr, wd in cases:
+        t0 = time.perf_counter()
+        gx, final, summary, counts = drive_async(*tr, "cuda", layout, wd)
+        wall = time.perf_counter() - t0
+        ex, cx, esum = eager[ref_key]
+        m = tr[0].shape[1]
+        for x in gx.values():
+            if x.shape != (m,) or not torch.isfinite(x).all():
+                raise AssertionError(f"sharded {label}: response not a "
+                                     f"finite ({m},)")
+        if len(gx) != REQUESTS:
+            raise AssertionError(f"sharded {label}: {len(gx)} responses")
+        vs_eager = max(rel(gx[i], ex[i]) for i in range(REQUESTS))
+        vs_cpu = max(rel(gx[i], cx[i]) for i in range(REQUESTS))
+        line = (f"  {label}: p50 {summary['p50_ms']:.3f} ms, p99 "
+                f"{summary['p99_ms']:.3f} ms, {summary['rps']:.1f} req/s "
+                f"(eager: p50 {esum['p50_ms']:.3f} ms, p99 "
+                f"{esum['p99_ms']:.3f} ms, {esum['rps']:.1f} req/s); "
+                f"vs eager {vs_eager:.2e}, vs the CPU {vs_cpu:.2e} (gate "
+                f"{SERVE_GATE:g}); {wall:.1f} s; launches "
+                + ", ".join(f"{k}={v}" for k, v in counts.items() if v))
+        if layout is None:
+            same = all(torch.equal(gx[i], ex[i]) for i in range(REQUESTS))
+            print(line + f"; bit for bit the eager server's: {same}",
+                  flush=True)
+            if not same:
+                raise AssertionError("replicated async responses differ "
+                                     "from the eager server's")
+            if not vs_cpu < SERVE_GATE:
+                raise AssertionError("replicated async: CPU disagrees")
+            counts_all[label] = counts
+            continue
+        want = expected_shard_launches(final)
+        got = {k: counts[k] for k in want}
+        print(line + f"; per-piece launches {got} (expected {want})",
+              flush=True)
+        if got != want:
+            raise AssertionError(f"sharded {label}: launches {got}, the "
+                                 f"pieces imply {want}")
+        if not max(vs_eager, vs_cpu) < SERVE_GATE:
+            raise AssertionError(f"sharded {label}: {vs_eager:.3e} from "
+                                 f"eager, {vs_cpu:.3e} from the CPU")
+        if final.state.stats.served != REQUESTS:
+            raise AssertionError(f"sharded {label}: served "
+                                 f"{final.state.stats.served}")
+        counts_all[label] = counts
+        if label == "1d":
+            first_1d = (gx, final.fingerprint())
+    for label, seed in (("1d, again", None),
+                        ("1d, seeded sleeps before each call", SEED + 12)):
+        t0 = time.perf_counter()
+        gx, final, summary, counts = drive_async(*trace, "cuda", "1d",
+                                                 sleep_seed=seed)
+        same = all(torch.equal(gx[i], first_1d[0][i])
+                   for i in range(REQUESTS))
+        fp_same = final.fingerprint() == first_1d[1]
+        print(f"  {label}: p50 {summary['p50_ms']:.3f} ms, p99 "
+              f"{summary['p99_ms']:.3f} ms, {summary['rps']:.1f} req/s; "
+              f"{time.perf_counter() - t0:.1f} s; responses bit for bit the "
+              f"first run's: {same}; final window, W and L: {fp_same}",
+              flush=True)
+        if not (same and fp_same):
+            raise AssertionError(f"sharded {label}: not bit-identical")
+        counts_all[label] = counts
+    return counts_all
+
+
+def sharded_algorithm1_path() -> dict:
+    """``sharded_chol_solve`` (1d) and ``sharded_chol_solve_2d`` at (N, M)
+    over 4 positions on the card against the plain ``chol_solve``; the
+    rank-k update with its columns sharded, both methods, at n = N, k =
+    16, against the replicated ``ops.cholupdate``. Each call's launches
+    are held to what its slabs imply."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    S, v = solve_inputs(N, M, gen)
+    oracle = chol_solve(S, v, LAM0)
+    plain_ms = wall_ms(lambda: chol_solve(S, v, LAM0))
+    total = {}
+
+    def counted(label, fn, want):
+        ops.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        got = {k: counts[k] for k in want}
+        if got != want:
+            raise AssertionError(f"{label}: launches {got}, its slabs imply "
+                                 f"{want}")
+        add_counts(total, counts)
+        return out, got
+
+    for label, fn, slabs in (
+            ("1d", lambda: sharded_chol_solve(S, v, LAM0,
+                                              mesh=shard_mesh("1d")), 4),
+            ("2d", lambda: sharded_chol_solve_2d(S, v, LAM0,
+                                                 mesh=shard_mesh("2d")), 2)):
+        x, got = counted(f"sharded solve {label}", fn,
+                         {"gram_sv": slabs, "ngd_apply": slabs,
+                          "cholesky": 1, "trisolve": 1})
+        ms = wall_ms(fn)
+        if x.shape != (M,) or not torch.isfinite(x).all():
+            raise AssertionError(f"sharded solve {label}: not a finite (m,)")
+        err = rel(x, oracle)
+        print(f"  sharded chol_solve {label} at {N}x{M}, 4 positions: "
+              f"{ms:.3f} ms per solve (plain chol_solve {plain_ms:.3f} ms); "
+              f"rel err vs plain {err:.2e} (gate {SOLVE_GATE:g}); launches a "
+              f"solve {got}", flush=True)
+        if not err < SOLVE_GATE:
+            raise AssertionError(f"sharded solve {label}: {err:.3e}")
+    for sign in (1, -1):
+        L, X = cholupdate_inputs(N, SLIDE_K, sign, gen)
+        want = ops.cholupdate(L, X, sign=sign)
+        fn = sharded_chol_update if sign > 0 else sharded_chol_downdate
+        what = "update" if sign > 0 else "downdate"
+        for method, expect in (("composed", {"cholesky": 1,
+                                             "cholupdate": 0}),
+                               ("rotations", {"cholesky": 0,
+                                              "cholupdate": SHARD_POSITIONS})):
+            got, counts = counted(
+                f"sharded rank-k {method}",
+                lambda: fn(L, X, mesh=shard_mesh("1d"), method=method),
+                expect)
+            again = fn(L, X, mesh=shard_mesh("1d"), method=method)
+            err = rel(got, want)
+            print(f"  sharded rank-{SLIDE_K} {what} at n = {N}, "
+                  f"{method}: rel err vs the replicated cholupdate "
+                  f"{err:.2e} (gate {CHOLUP_TOL:g}), ‖L′L′ᵀ − (LLᵀ ± XXᵀ)‖ "
+                  f"{recon_err(got, L, X, sign):.1e}, repeat bit-identical "
+                  f"{torch.equal(got, again)}; launches {counts}",
+                  flush=True)
+            if not err < CHOLUP_TOL or not torch.equal(got, again):
+                raise AssertionError(f"sharded rank-k {method} {sign:+d}: "
+                                     f"{err:.3e}")
+    return total
+
+
+# ---------------------------------------------------------------------------
 # 11. the streaming curvature cache
 # ---------------------------------------------------------------------------
 
@@ -2338,6 +2654,7 @@ def lm_cli_path() -> dict:
         trace_path, prof = os.path.join(tmp, "t.json"), \
             os.path.join(tmp, "prof")
         ops.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
         server, losses, h, out, wall, saves = run_cli(
             ["--arch", LM_ARCH, "--full", "--n-layers", str(LM_LAYERS),
              "--device", "cuda", "--ckpt-dir", ck, "--metrics-port", "0",
@@ -2359,7 +2676,8 @@ def lm_cli_path() -> dict:
         m = st.S.shape[1]
         window_b = st.S.numel() * st.S.element_size()
         param_b = sum(t.numel() * t.element_size() for t in leaves(h.params))
-        print(f"  serve_main (kernels): {wall:.1f} s; m = {m:,}; verdict "
+        print(f"  serve_main (kernels): {wall:.1f} s; m = {m:,}; peak "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; verdict "
               f"{verdict}; {len(requests)} request spans of {len(spans)}; "
               f"snapshot: {snap['counters'].get('serve.requests')} requests; "
               f"{server.adaptation._audit_step} audits; exit checkpoint at "
@@ -2619,6 +2937,90 @@ def lm_tenant_cli_path() -> dict:
         return {"counts": counts}
     finally:
         tempfile.tempdir = tempdir
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def sharded_cli_path() -> dict:
+    """``python -m repro_torch.serve --full --n-layers 2 --mesh 1d
+    --async`` on the card (the default ``--mesh-shape 1,1``: one position,
+    the whole window its slab): the ``[async 1d]`` line, its peak memory,
+    each kernel's launches against what one slab implies, the exit
+    checkpoint (≈ 20 GB, in a temporary directory) restored onto the card
+    and held to the live pieces bit for bit; then ``--smoke --mesh 1d
+    --async`` on the card and on the CPU, the first nine losses within
+    LM_LOSS_GATE."""
+    tmp = tempfile.mkdtemp(prefix="sharded_cli_")
+    try:
+        ck = os.path.join(tmp, "ck")
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        server, losses, h, out, wall, saves = run_cli(
+            ["--arch", LM_ARCH, "--full", "--n-layers", str(LM_LAYERS),
+             "--mesh", "1d", "--async", "--ckpt-dir", ck])
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        st = server.state
+        if "[async 1d]" not in cli_line(out, "resident window factorized"):
+            raise AssertionError("sharded CLI: not the async 1d server")
+        # one fold a request, one cross and one apply pass a microbatch
+        mbs, folds = st.stats.microbatches, st.stats.adapted // 2
+        want = {"fold_cols": folds, "sv_cross": mbs, "serve_apply": mbs}
+        got = {k: counts[k] for k in want}
+        print(f"  serve_main --mesh 1d --async: {wall:.1f} s; m = "
+              f"{st.S.shape[1]:,}; {cli_line(out, 'served ')}; peak "
+              f"{peak / 1e9:.2f} GB; exit checkpoint written in "
+              + "/".join(f"{t:.1f}" for t in saves) + " s; launches "
+              + ", ".join(f"{k}={v}" for k, v in counts.items() if v)
+              + f" (one slab implies {want})", flush=True)
+        if got != want or len(losses) != 12:
+            raise AssertionError(f"sharded CLI: launches {got}, one slab "
+                                 f"implies {want}")
+        rounds = ckpt_io.latest_step(ck)
+        tmpl = st._replace(S=torch.empty(st.S.shape, dtype=st.S.dtype,
+                                         device="meta"))
+        t0 = time.perf_counter()
+        back, meta = ckpt_io.restore(
+            ck, rounds, {"serve": serve_state_tree(tmpl),
+                         "params": h.params}, device="cuda")
+        t_restore = time.perf_counter() - t0
+        whole = back["serve"].S
+        same = all(torch.equal(whole[:, a:z], p) for (a, z), p in
+                   zip(st.S.col_ranges(), st.S.pieces[0][0]))
+        live = serve_state_tree(st._replace(S=whole))
+        same = same and all(
+            torch.equal(torch.as_tensor(a).cpu(), torch.as_tensor(b).cpu())
+            for a, b in zip(leaves(back["serve"])[1:], leaves(live)[1:]))
+        same = same and all(torch.equal(a, b) for a, b in
+                            zip(leaves(back["params"]), leaves(h.params)))
+        print(f"  exit checkpoint at round {rounds} ({meta}) restored onto "
+              f"the card in {t_restore:.1f} s: the window equal to the live "
+              f"slab, W, L, the counters and the params equal: {same}",
+              flush=True)
+        if not same:
+            raise AssertionError("sharded CLI: the exit checkpoint did not "
+                                 "restore bit for bit")
+        del back, whole, live, server, h, st
+        gc.collect()
+        torch.cuda.empty_cache()
+        smoke = {}
+        for dev in ("cuda", "cpu"):
+            _, losses, _, out, wall, _ = run_cli(
+                ["--arch", LM_ARCH, "--mesh", "1d", "--async", "--device",
+                 dev, "--ckpt-dir", os.path.join(tmp, f"smoke_{dev}")])
+            smoke[dev] = (losses, wall)
+        errs = [abs(a - b) / abs(b) for a, b in zip(smoke["cuda"][0],
+                                                    smoke["cpu"][0])]
+        print(f"  --smoke --mesh 1d --async: {smoke['cuda'][1]:.1f} s on the "
+              f"card, {smoke['cpu'][1]:.1f} s on the CPU; losses vs the CPU "
+              f"per request " + " ".join(f"{e:.1e}" for e in errs)
+              + f" (the first nine gated at {LM_LOSS_GATE:g})", flush=True)
+        if len(errs) != 12 or not max(errs[:9]) < LM_LOSS_GATE:
+            raise AssertionError("sharded CLI: --smoke on the card and on "
+                                 "the CPU disagree")
+        return {"counts": counts}
+    finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
@@ -3666,6 +4068,19 @@ def main() -> int:
           f"zipf({TENANT_ZIPF:g}) tenant ids among {TENANTS}, rank "
           f"{TENANT_RANK}, a {TENANT_BUDGET} B budget")
     paths["tenant serving"] = tenant_serving_path(trace)["counts"]
+    t0 = time.perf_counter()
+    phase(f"sharded serving tier: the dense trace through AsyncSolveServer, "
+          f"replicated and on {SHARD_POSITIONS} positions of the card (1d, "
+          f"2d as (2, 2), blocked), a bf16 window (1d) and m = {PAD_M:,} "
+          f"(1d, padded); then a second 1d run and one with seeded sleeps")
+    for label, counts in sharded_serving_path(trace, dense).items():
+        paths[f"sharded serving, {label}"] = counts
+    phase(f"sharded Algorithm 1 at {N}x{M} on {SHARD_POSITIONS} positions "
+          f"(1d, 2d) and the rank-{SLIDE_K} update with its columns sharded "
+          f"(composed, rotations)")
+    paths["sharded Algorithm 1"] = sharded_algorithm1_path()
+    print(f"  the sharded phases {time.perf_counter() - t0:.1f} s",
+          flush=True)
     phase(f"streaming curvature, {STREAM_N}x{M}, {STREAM_STEPS} solves")
     streaming_path()
 
@@ -3694,6 +4109,15 @@ def main() -> int:
     paths["LM serving CLI, tenants"] = lm_tenant_cli_path()["counts"]
     gc.collect()
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase(f"LM serving CLI, sharded: python -m repro_torch.serve --full "
+          f"--n-layers {LM_LAYERS} --mesh 1d --async (exit checkpoint "
+          f"restored); then --smoke --mesh 1d --async on the card and on the "
+          f"CPU")
+    paths["LM serving CLI, sharded"] = sharded_cli_path()["counts"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  {time.perf_counter() - t0:.1f} s", flush=True)
     phase(f"LM NGD trainer, {LM_ARCH} at published widths, {LM_LAYERS} "
           f"layers, bf16, batch {TRAIN_BATCH}, seq {TRAIN_SEQ}, λ = "
           f"{TRAIN_LAM:g}, lr {TRAIN_LR:g}")
@@ -3771,8 +4195,11 @@ def main() -> int:
         print(f"  {time.perf_counter() - t0:.1f} s", flush=True)
     print(f"  the encoder-decoder and patch-prefix phase "
           f"{time.perf_counter() - t_a6b:.1f} s", flush=True)
-    for label in ("tenant serving", "LM serving", "LM serving CLI",
-                  "LM serving CLI, tenants", "LM NGD trainer",
+    for label in ("tenant serving", *(k for k in paths if
+                                      k.startswith("sharded ")),
+                  "LM serving", "LM serving CLI",
+                  "LM serving CLI, tenants", "LM serving CLI, sharded",
+                  "LM NGD trainer",
                   "long prefill") + tuple(
                       f"LM serving, {a}" for a, _, _, _ in ZOO_SERVED) + (
                       "mamba2 prefill + decode", "LM serving CLI, zoo",

@@ -199,7 +199,8 @@ def residual(S, v, x, damping, *, mode: str = "real") -> torch.Tensor:
         r = tuple(yb + damping * xb - vb
                   for yb, xb, vb in zip(y, x_blocks, v_blocks))
         return block_norm(r) / block_norm(v_blocks)
-    Ax = ct(S, mode) @ (S @ x) + damping * x
+    # a low-precision window is widened as the solve widens it
+    Ax = _op_rmatvec(S, _op_matvec(S, x), mode=mode) + damping * x
     return torch.linalg.norm(Ax - v) / torch.linalg.norm(v)
 
 

@@ -11,11 +11,12 @@ ngd`` is the paper's damped natural gradient (Algorithm 1) end to end.
 Entry points run on CUDA unless given ``device="cpu"`` / ``--device
 cpu``, where the kernels' plain versions run.
 
-``build_server`` is the eager replicated server of the reference, with
-its observability hooks, audit and tenant manager. Its other flavours
-raise ``NotImplementedError`` naming the queue that ports them
-(``repro_torch.roadmap``): ``layout``/``async_`` (the sharded tier); so
-does ``train_main``'s ``--mesh-shape`` away from ``1,1``.
+``build_server`` is the reference's: the eager replicated server, or
+with ``async_`` the concurrent ``AsyncSolveServer``, its window sharded
+over a mesh with ``layout``; with its observability hooks, audit and
+tenant manager. ``train_main``'s ``--mesh-shape`` away from ``1,1``
+raises ``NotImplementedError`` naming the queue that ports it
+(``repro_torch.roadmap``).
 """
 from __future__ import annotations
 
@@ -223,13 +224,6 @@ def _build_serve_front(cfg, *, window: int, seq: int, score_chunk=None,
     return handles, S0
 
 
-# option → the key of the roadmap queue that ports it
-_LATER = {
-    "layout": "sharded",
-    "async_": "sharded",
-}
-
-
 def build_server(cfg, *, window: int, seq: int, damping: float = 1e-3,
                  max_tokens: int = 4096, max_requests: int = 8,
                  refresh_every: int = 64, drift_tol=None, drift_frac=0.25,
@@ -238,14 +232,22 @@ def build_server(cfg, *, window: int, seq: int, damping: float = 1e-3,
                  window_dtype=None, tenant_rank=None, tenant_budget_mb=None,
                  seed: int = 0, audit_every: int = 0, audit_probes: int = 2,
                  registry=None, tracer=None, profile=None, health=None,
-                 recorder=None, record_dir=None, params=None, device=None):
-    """Config → model → resident curvature window → eager ``SolveServer``.
+                 recorder=None, record_dir=None, params=None, device=None,
+                 mesh=None):
+    """Config → model → resident curvature window → server.
 
     Builds the score-grad pass, the prefill and the greedy serve step,
     seeds an n=``window`` sample score window from synthetic data,
     factorizes it once, and wraps it in a request-driven server with
     token-budget batching and the age/drift online-adaptation policy.
     Returns ``(server, handles)``.
+
+    ``async_=True`` returns the concurrent ``repro_torch.dist.
+    AsyncSolveServer`` in place of the eager ``SolveServer``; ``layout``
+    ("1d" | "2d") also shards the window over ``mesh`` (default: a (1, 1)
+    ("data", "model") mesh on the window's device), so the requests and
+    the folds run per slab. A sharded window needs the async server (the
+    eager one is the replicated baseline).
 
     ``params``: a parameter tree to serve (tensors, or numpy arrays such
     as the JAX LM's, through ``params_from_arrays``) in place of one drawn
@@ -268,11 +270,11 @@ def build_server(cfg, *, window: int, seq: int, damping: float = 1e-3,
     from repro_torch.serve import (OnlineAdaptation, SolveServer,
                                    TokenBudgetBatcher, init_serve_state)
 
-    given = {"layout": layout, "async_": async_}
-    for name, value in given.items():
-        if value not in (None, False):
-            raise NotImplementedError(
-                f"build_server({name}=...) comes with {queue(_LATER[name])}")
+    if layout is not None and not async_:
+        raise ValueError(
+            f"layout={layout!r} shards the resident window, which only the "
+            "async server serves; pass async_=True (the eager SolveServer "
+            "is the replicated baseline)")
     handles, S0 = _build_serve_front(cfg, window=window, seq=seq,
                                      score_chunk=score_chunk, seed=seed,
                                      params=params, device=device)
@@ -293,14 +295,27 @@ def build_server(cfg, *, window: int, seq: int, damping: float = 1e-3,
             budget_bytes=None if tenant_budget_mb is None
             else int(float(tenant_budget_mb) * 2**20),
             registry=registry)
-    state = init_serve_state(S0, damping, jitter=jitter,
-                             window_dtype=window_dtype)
+    if layout is not None:
+        from repro_torch.dist import DistSpec, init_sharded_serve_state
+        from repro_torch.launch.mesh import make_mesh
+        if mesh is None:
+            mesh = make_mesh((1, 1), ("data", "model"), device=S0.device)
+        state = init_sharded_serve_state(S0, damping,
+                                         spec=DistSpec(mesh, layout),
+                                         jitter=jitter,
+                                         window_dtype=window_dtype)
+    else:
+        state = init_serve_state(S0, damping, jitter=jitter,
+                                 window_dtype=window_dtype)
     del S0
-    server = SolveServer(state, batcher=batcher, adaptation=adaptation,
-                         policy=policy, jitter=jitter, tenants=tenants,
-                         registry=registry, tracer=tracer, profile=profile,
-                         health=health, recorder=recorder)
-    return server, handles
+    kw = dict(batcher=batcher, adaptation=adaptation, policy=policy,
+              jitter=jitter, tenants=tenants, registry=registry,
+              tracer=tracer, profile=profile, health=health,
+              recorder=recorder)
+    if async_:
+        from repro_torch.dist import AsyncSolveServer
+        return AsyncSolveServer(state, **kw), handles
+    return SolveServer(state, **kw), handles
 
 
 def train_main(argv=None):

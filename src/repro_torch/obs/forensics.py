@@ -51,7 +51,6 @@ import numpy as np
 import torch
 
 from repro_torch.core.device import resolve_device
-from repro_torch.roadmap import queue
 
 __all__ = ["IncidentBundle", "load_bundle", "analyze", "format_postmortem",
            "main"]
@@ -116,15 +115,14 @@ def analyze(bundle: IncidentBundle, *, audit_every: int = 1,
     meta = bundle.meta
     reg = MetricsRegistry()
     mon = HealthMonitor(reg, rules=rules)
-    if meta.get("fifo_n") is not None:
-        raise NotImplementedError(
-            "a bundle of a padded sharded window (fifo_n) comes with "
-            + queue("sharded"))
     ad = OnlineAdaptation(refresh_every=10 ** 9, drift_tol=None,
                           drift_frac=None,
                           jitter=float(meta.get("jitter", 0.0)),
                           registry=reg, health=mon,
                           audit_every=max(int(audit_every), 0))
+    if meta.get("fifo_n") is not None:
+        # a window padded in its sample axis: fold at the logical modulus
+        ad.fifo_n = int(meta["fifo_n"])
 
     # request digests let the postmortem name the tenant behind an event
     # origin ("req<uid>" — the dispatcher's fold-event tag)

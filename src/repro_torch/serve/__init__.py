@@ -13,7 +13,8 @@ damped-Fisher solves against the resident factorization.
 * ``main``    — ``serve_main``/``serve_trace``: the LM serving loop
   (``python -m repro_torch.serve``), imported on use.
 
-Tenants come with a later slice (``repro_torch.roadmap``).
+The concurrent and sharded server is ``repro_torch.dist``; tenants are
+``repro_torch.tenants``.
 """
 from repro_torch.serve.adapt import OnlineAdaptation
 from repro_torch.serve.batcher import Microbatch, SolveRequest, TokenBudgetBatcher

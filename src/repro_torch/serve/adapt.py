@@ -54,6 +54,14 @@ from repro_torch.serve.state import ServeState, serve_mode
 __all__ = ["OnlineAdaptation", "pad_to_window_cols"]
 
 
+def _n_blocks(S) -> Optional[int]:
+    """Block count of a blocked window (sharded or not); None if dense."""
+    from repro_torch.dist.state import is_sharded
+    if is_sharded(S):
+        return len(S.pieces) if S.blocked else None
+    return len(S.blocks) if is_blocked(S) else None
+
+
 def pad_to_window_cols(S, values, *, axis: int, cast: Optional[bool] = None):
     """Zero-pad ``values`` (dense or per-block tuple) along ``axis`` up to
     the window's column widths, and place them, contiguous, on the
@@ -63,8 +71,12 @@ def pad_to_window_cols(S, values, *, axis: int, cast: Optional[bool] = None):
     ``cast`` (default: ``axis == 1``, i.e. fold rows) also rounds the
     values to each block's storage dtype — the one dtype-aware cast point,
     so a bf16 window computes its fold columns from exactly the values
-    the FIFO write stores. RHS columns are not rounded."""
-    S_blocks = S.blocks if is_blocked(S) else (S,)
+    the FIFO write stores. RHS columns are not rounded. A sharded window
+    (``repro_torch.dist``) takes its whole widths, the values landing on
+    its first device."""
+    from repro_torch.dist.state import is_sharded
+    S_blocks = S.templates() if is_sharded(S) else \
+        S.blocks if is_blocked(S) else (S,)
     val_blocks = tuple(values) if isinstance(values, (tuple, list)) \
         else (values,)
     if cast is None:
@@ -89,16 +101,18 @@ def pad_to_window_cols(S, values, *, axis: int, cast: Optional[bool] = None):
     return padded[0]
 
 
-def _fold_window(S, W, L, slot: int, rows, *, with_aux: bool = False):
+def _fold_window(S, W, L, slot: int, rows, *, with_aux: bool = False,
+                 fifo_n: Optional[int] = None):
     """One FIFO fold: rows (k, m) dense or per-block pieces replace the k
     oldest window samples. Returns (S', W', L', slot', aux) — ``aux`` the
     downdate's ``DowndateAux`` when ``with_aux``, else None — or None when
-    the rows hold a NaN/Inf (the fold is rejected).
+    the rows hold a NaN/Inf (the fold is rejected). ``fifo_n``: the FIFO
+    modulus when it is not W's size (a window padded in its sample axis).
 
     The fold makes one host read, as the reference's does: the rows'
     finiteness flag travels with the 2k×2k replacement core, whose
     eigendecomposition runs on the host."""
-    n = W.shape[0]
+    n = W.shape[0] if fifo_n is None else fifo_n
     row_blocks = tuple(rows) if isinstance(rows, (tuple, list)) else (rows,)
     k = row_blocks[0].shape[0]
     idx = (torch.arange(k, device=W.device) + slot) % n
@@ -150,6 +164,13 @@ class OnlineAdaptation:
     without a registry: ``rejected_nonfinite`` (rejected folds),
     ``downdate_margin`` (worst margin of the last drain) and
     ``downdate_clamped`` (clamped downdates).
+
+    ``dist`` (``repro_torch.dist.DistSpec``): folds and refreshes run
+    through the sharded fold and refresh of ``dist.cholupdate`` (per-slab
+    passes, the replicated factor) on a window laid out on its mesh.
+    ``fifo_n`` pins the FIFO modulus to the logical sample count of a
+    window padded in its sample axis (set by the async server when it
+    binds a padded sharded state; None: W's size).
     """
 
     def __init__(self, *, refresh_every: int = 64,
@@ -157,7 +178,8 @@ class OnlineAdaptation:
                  drift_frac: Optional[float] = 0.25, jitter: float = 0.0,
                  journal=None, on_fold=None, registry=None, health=None,
                  audit_every: int = 0, audit_probes: int = 2,
-                 condest_iters: int = 2, track_margins: bool = False):
+                 condest_iters: int = 2, track_margins: bool = False,
+                 dist=None):
         if refresh_every < 1:
             raise ValueError("refresh_every must be >= 1")
         self.refresh_every = int(refresh_every)
@@ -180,6 +202,9 @@ class OnlineAdaptation:
         # (DowndateAux, CUDA event or None) of recent folds, drained at the
         # next maybe_refresh; bounded so it cannot grow without limit
         self._pending_aux: list = []
+        self.dist = dist
+        self.fifo_n: Optional[int] = None
+        self._dist_fns: dict = {}       # (kind, mode) -> sharded fold/refresh
 
     @classmethod
     def from_policy(cls, policy, *, jitter: Optional[float] = None
@@ -215,13 +240,14 @@ class OnlineAdaptation:
         row_blocks = tuple(rows) if isinstance(rows, (tuple, list)) \
             else (rows,)
         k = int(row_blocks[0].shape[0])
-        n = int(state.W.shape[0])
+        n = int(state.W.shape[0]) if self.fifo_n is None else self.fifo_n
         if k > n:
             raise ValueError(f"cannot fold {k} rows into an n={n} window")
-        if is_blocked(state.S) and len(row_blocks) != len(state.S.blocks):
+        n_blocks = _n_blocks(state.S)
+        if n_blocks is not None and len(row_blocks) != n_blocks:
             raise ValueError(
-                f"{len(row_blocks)} row blocks for a "
-                f"{len(state.S.blocks)}-block window")
+                f"{len(row_blocks)} row blocks for a {n_blocks}-block "
+                "window")
         expect = tuple((state.slot + i) % n for i in range(k))
         if slots is not None:
             got = tuple(int(s) for s in slots)
@@ -232,8 +258,16 @@ class OnlineAdaptation:
         # the one dtype-aware cast + pad point: the journal, the cross
         # pass and the FIFO write all see the stored values
         rows_in = pad_to_window_cols(state.S, rows, axis=1)
-        out = _fold_window(state.S, state.W, state.L, state.slot, rows_in,
-                           with_aux=self._tracks_margins)
+        if self.dist is not None:
+            from repro_torch.dist.state import shard_window
+            fold = self._dist_fn("fold", serve_mode(state))
+            out = fold.apply(shard_window(state.S, self.dist), state.W,
+                             state.L, state.slot, rows_in,
+                             with_aux=self._tracks_margins)
+        else:
+            out = _fold_window(state.S, state.W, state.L, state.slot,
+                               rows_in, with_aux=self._tracks_margins,
+                               fifo_n=self.fifo_n)
         if out is None:
             # one NaN/Inf row would poison W, L and the window at once
             self._reject_nonfinite()
@@ -277,8 +311,11 @@ class OnlineAdaptation:
     def _window_gauges(self, S) -> None:
         """Window storage by dtype — shapes and dtypes only, no device
         read."""
+        from repro_torch.dist.state import is_sharded
         by_dtype: dict = {}
-        for b in (S.blocks if is_blocked(S) else (S,)):
+        pieces = [p for _, p in S.slab_pieces()] if is_sharded(S) else \
+            S.blocks if is_blocked(S) else (S,)
+        for b in pieces:
             name = str(b.dtype).removeprefix("torch.")
             by_dtype[name] = by_dtype.get(name, 0) \
                 + b.numel() * b.element_size()
@@ -300,17 +337,43 @@ class OnlineAdaptation:
         if refreshed:
             if record and self.journal is not None:
                 self.journal.append_refresh()
-            fac = chol_factorize(state.S, state.lam0, mode=serve_mode(state),
-                                 jitter=self.jitter)
+            if self.dist is not None:
+                W, L = self._dist_fn("refresh", serve_mode(state))(
+                    state.S, state.lam0)
+            else:
+                fac = chol_factorize(state.S, state.lam0,
+                                     mode=serve_mode(state),
+                                     jitter=self.jitter)
+                W, L = fac.W, fac.L
             stats = state.stats._replace(refreshes=state.stats.refreshes + 1,
                                          last_residual=-1.0)
             if self.registry is not None:
                 self.registry.counter("curvature.refreshes").inc()
                 reason = "force" if force else ("age" if age_due else "drift")
                 self.registry.counter(f"curvature.refresh_{reason}").inc()
-            state = state._replace(W=fac.W, L=fac.L, age=0, stats=stats)
+            state = state._replace(W=W, L=L, age=0, stats=stats)
         self._observe_health(state)
         return state, refreshed
+
+    def _dist_fn(self, kind: str, mode: str):
+        """Build-once cache of the sharded fold/refresh for ``self.dist``."""
+        fn = self._dist_fns.get((kind, mode))
+        if fn is None:
+            from repro_torch.dist.cholupdate import (make_sharded_fold,
+                                                     make_sharded_refresh)
+            spec = self.dist
+            if kind == "fold":
+                fn = make_sharded_fold(
+                    spec.mesh, layout=spec.layout,
+                    model_axis=spec.model_axis, data_axis=spec.data_axis,
+                    mode=mode, fifo_n=self.fifo_n)
+            else:
+                fn = make_sharded_refresh(
+                    spec.mesh, layout=spec.layout,
+                    model_axis=spec.model_axis, data_axis=spec.data_axis,
+                    mode=mode, jitter=self.jitter)
+            self._dist_fns[(kind, mode)] = fn
+        return fn
 
     def _observe_health(self, state: ServeState) -> None:
         """The maintenance boundary's reads: the pending downdate margins,

@@ -40,6 +40,10 @@ class SolveRequest:
     t_submit: float = 0.0       # stamped by the server for latency stats
     tenant: Optional[str] = None
     trace: Optional[str] = None   # obs trace id of the request's spans
+    # the async server's place of the submit among its calls, and the
+    # damping state pinned at that call (``dist.AsyncSolveServer``)
+    seq: int = -1
+    dstate: Any = None
 
 
 class Microbatch(NamedTuple):
@@ -136,21 +140,44 @@ class TokenBudgetBatcher:
                 "pending_tokens": self.pending_tokens,
                 "oldest_age_s": oldest}
 
-    def next_microbatch(self) -> Optional[Microbatch]:
-        """Coalesce the queue head into one microbatch (None when empty)."""
-        if not self._queue:
-            return None
+    def select(self, upto: Optional[int] = None
+               ) -> Tuple[List[int], Optional[int]]:
+        """The queue head's microbatch among the first ``upto`` queued
+        requests (all by default): the indices it takes, and the index of
+        the request that closes it by the budget — the last one taken once
+        ``max_requests`` or the whole ``max_tokens`` is reached, or the
+        first of its tenant that would overflow ``max_tokens`` — or None
+        while a later request of its tenant could still join it."""
+        limit = len(self._queue) if upto is None \
+            else min(int(upto), len(self._queue))
+        if not limit:
+            return [], None
         tenant = self._queue[0].tenant
-        take, tokens, i = [], 0, 0
-        while i < len(self._queue) and len(take) < self.max_requests:
+        take, tokens = [], 0
+        for i in range(limit):
             nxt = self._queue[i]
             if nxt.tenant != tenant:
-                i += 1
                 continue
             if take and tokens + nxt.tokens > self.max_tokens:
-                break
-            take.append(self._queue.pop(i))
+                return take, i
+            take.append(i)
             tokens += nxt.tokens
+            if len(take) == self.max_requests or tokens >= self.max_tokens:
+                return take, i
+        return take, None
+
+    def next_microbatch(self, upto: Optional[int] = None
+                        ) -> Optional[Microbatch]:
+        """Coalesce the queue head into one microbatch (None when empty);
+        ``upto``: only the first ``upto`` queued requests may join."""
+        idx, _ = self.select(upto)
+        if not idx:
+            return None
+        take = [self._queue[i] for i in idx]
+        for i in reversed(idx):
+            self._queue.pop(i)
+        tenant = take[0].tenant
+        tokens = sum(r.tokens for r in take)
         k = len(take)
         pad_to = _bucket_width(k, self.max_requests) if self.bucket else k
         V = _stack_columns([r.v for r in take], pad_to)

@@ -1,5 +1,5 @@
 """``serve_main`` — the online NGD serving loop of an LM as a CLI (port of
-``repro/serve/main.py``, the eager in-process loop).
+``repro/serve/main.py``'s in-process loop, eager or async).
 
     PYTHONPATH=src python -m repro_torch.serve --arch llama3.2-3b \\
         --device cpu --requests 6 --window 6 --seq 12 --decode-tokens 2
@@ -16,7 +16,10 @@ request ``serve_trace``
    ``--tenant-rank``, under the ``--tenant-budget-mb`` residency budget;
    a ``tenants:`` packing line prints at exit);
 3. flushes coalesced microbatches through the ``SolveServer`` (resident
-   factor; no Gram on the request path), applies the natural-gradient
+   factor; no Gram on the request path) — or, with ``--async``, the
+   ``AsyncSolveServer``, its window sharded over a ``--mesh-shape`` mesh
+   with ``--mesh 1d|2d`` (which implies ``--async``; the positions take
+   a card each, or all lie on ``--device``), applies the natural-gradient
    updates to the live params, feeds the Levenberg–Marquardt damping
    state with each request's actual against predicted loss reduction
    (the drift threshold's autotune), and lets ``OnlineAdaptation`` fold
@@ -37,9 +40,8 @@ built, so the trace holds the model build and the window's
 factorization) and ``--record-dir`` (the flight recorder). ``--smoke``
 (the default) serves the architecture's reduced config; ``--full`` its
 published widths, ``--n-layers`` cuts the depth.
-The fleet and the async and sharded servers come with later slices
-(``repro_torch.roadmap``) and raise ``NotImplementedError`` when asked
-for.
+The fleet comes with a later slice (``repro_torch.roadmap``) and raises
+``NotImplementedError`` when asked for.
 """
 from __future__ import annotations
 
@@ -55,6 +57,8 @@ import torch
 from repro_torch import configs
 from repro_torch.checkpoint import checkpoint as ckpt
 from repro_torch.core.damping import LevenbergMarquardtDamping
+from repro_torch.dist import AsyncSolveServer
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.launch.trainer import build_server
 from repro_torch.obs import (FlightRecorder, HealthMonitor, MetricsRegistry,
                              ProfileHooks, Tracer, start_metrics_server,
@@ -100,12 +104,18 @@ def serve_trace(server, h, *, requests: int, window: int, adapt_examples: int,
     CLI's checkpoint cadence).
     """
     dev = h.device
+    pin = isinstance(server, AsyncSolveServer)
     lm_damping = LevenbergMarquardtDamping(damping)
     dstate = lm_damping.init()
     rng = np.random.default_rng(seed)
     records, pending, rounds = [], {}, 0
 
     for r in range(requests):
+        if pin:
+            # the async server judges the microbatches a call closes
+            # against the damping state pinned at that call: pin it
+            # before submitting, not at flush time
+            server.damping_state = dstate
         # one synthetic request: adaptation examples + a prompt
         t0 = _sync(dev)
         full = h.data.batch_at(r + 1)
@@ -210,11 +220,20 @@ def _parser() -> argparse.ArgumentParser:
                     default="fp32",
                     help="resident score-window storage dtype")
     ap.add_argument("--seed", type=int, default=0)
-    # the reference's other flavours: accepted, refused until their slices
-    ap.add_argument("--mesh-shape", default="1,1")
+    ap.add_argument("--mesh-shape", default="1,1",
+                    help="device mesh for sharded serving, e.g. 2,2 → "
+                         "(data, model); a card a position, or every "
+                         "position on --device")
     ap.add_argument("--mesh", choices=["replicated", "1d", "2d"],
-                    default="replicated")
-    ap.add_argument("--async", dest="async_", action="store_true")
+                    default="replicated",
+                    help="resident window layout: replicated (one "
+                         "device) or sharded over the mesh (implies "
+                         "--async)")
+    ap.add_argument("--async", dest="async_", action="store_true",
+                    help="serve through the concurrent AsyncSolveServer "
+                         "(a worker thread; responses as the eager "
+                         "server's)")
+    # the reference's fleet: accepted, refused until its slice
     ap.add_argument("--fleet", type=int, default=0, metavar="N")
     ap.add_argument("--route", choices=["round_robin", "least_loaded",
                                         "by_adapter"], default="round_robin")
@@ -265,10 +284,17 @@ def _later_flags(args) -> dict:
         "--fleet": (args.fleet > 0, "fleet"),
         "--no-reconcile": (args.no_reconcile, "fleet"),
         "--route": (args.route != "round_robin", "fleet"),
-        "--async": (args.async_, "sharded"),
-        "--mesh": (args.mesh != "replicated", "sharded"),
-        "--mesh-shape": (args.mesh_shape.replace(" ", "") != "1,1", "launch"),
     }
+
+
+def make_serve_mesh(mesh_shape: str, device=None):
+    """``--mesh-shape`` as a mesh, with the reference's axes: ("data",),
+    ("data", "model") or ("pod", "data", "model"). Without ``device`` the
+    positions take a card each; with it they all lie on ``device``."""
+    shape = tuple(int(x) for x in mesh_shape.split(","))
+    axes = ("data", "model")[:len(shape)] if len(shape) <= 2 \
+        else ("pod", "data", "model")
+    return make_mesh(shape, axes, device=device)
 
 
 def serve_main(argv=None):
@@ -280,6 +306,10 @@ def serve_main(argv=None):
         else configs.get_config(args.arch)
     if args.n_layers is not None:
         cfg = cfg.scaled(n_layers=args.n_layers)
+    layout = None if args.mesh == "replicated" else args.mesh
+    mesh = None if layout is None \
+        else make_serve_mesh(args.mesh_shape, args.device)
+    async_ = args.async_ or layout is not None
 
     registry = MetricsRegistry()
     health = HealthMonitor(registry)
@@ -293,7 +323,7 @@ def serve_main(argv=None):
         # a degraded/critical process that dies without flushing still
         # leaves a final bundle behind
         recorder.install_exit_capture()
-    endpoints = []
+    endpoints, server = [], None
     try:
         t0 = time.perf_counter()
         server, h = build_server(
@@ -306,10 +336,11 @@ def serve_main(argv=None):
             tenant_budget_mb=args.tenant_budget_mb,
             seed=args.seed, audit_every=args.audit_every, registry=registry,
             tracer=tracer, profile=profile, health=health, recorder=recorder,
-            device=args.device)
+            device=args.device, mesh=mesh, layout=layout, async_=async_)
         port = _start_endpoint(args, registry, health.report, endpoints)
+        kind = f"async {layout or 'replicated'}" if async_ else "eager"
         print(f"resident window factorized: n={args.window} "
-              f"m={server.state.S.shape[1]} λ0={args.damping} [eager] on "
+              f"m={server.state.S.shape[1]} λ0={args.damping} [{kind}] on "
               f"{h.device} ({(time.perf_counter() - t0) * 1e3:.0f} ms)",
               flush=True)
 
@@ -373,7 +404,11 @@ def serve_main(argv=None):
                   + f" ({recorder.debounced} debounced)")
         _finish_obs(args, registry.snapshot(), tracer=tracer, port=port,
                     health_report=health.report())
+        if async_:
+            server.shutdown()
     finally:
+        if isinstance(server, AsyncSolveServer):
+            server.shutdown(drain=False)     # a no-op after a clean run
         if profile is not None:
             profile.stop()      # a no-op unless the run raised
         for srv in endpoints:

@@ -50,7 +50,8 @@ from repro_torch.serve.adapt import OnlineAdaptation
 from repro_torch.serve.batcher import Microbatch, TokenBudgetBatcher
 from repro_torch.serve.state import ServeState, as_factorization, serve_mode
 
-__all__ = ["SolveResult", "ServerMetrics", "SolveServer"]
+__all__ = ["SolveResult", "ServerMetrics", "SolveServer",
+           "serve_tenant_microbatch"]
 
 
 class SolveResult(NamedTuple):
@@ -94,6 +95,40 @@ def _coalesced_solve(S, W, L, lam0: float, V, lams, *, mode: str,
         return fac.solve(V), None
     # mixed per-request λ: drift monitoring needs a single λ — skip it
     return fac.solve_batch(V, lams, jitter=jitter), None
+
+
+def serve_tenant_microbatch(st, tenants, mb: Microbatch, solve):
+    """x of one tenant microbatch: ``solve(L_t, λ, V, dampings)`` against
+    the tenant's factor at each λ of the microbatch. A λ away from λ₀
+    (compared exactly, λ₀ being rounded to the window's dtype) gets its
+    own L_t, and its column group is solved apart; the solve takes λ
+    rounded to that dtype, as the reference's ``jnp.asarray(lam,
+    lam0.dtype)``."""
+    lam0 = st.lam0
+    lams = sorted({r.damping for r in mb.requests})
+    blocked = isinstance(mb.V, (tuple, list))
+
+    def solve_at(lam: float, V, dampings):
+        L_t = tenants.factor(st, mb.tenant,
+                             lam=None if lam == lam0 else lam)
+        return solve(L_t, real_scalar(lam, st.W.dtype), V, dampings)
+
+    if len(lams) == 1:
+        return solve_at(lams[0], mb.V, mb.dampings)
+    # mixed λ within one tenant: L_t must be rebuilt per λ anyway, so
+    # solve per-unique-λ column groups and reassemble
+    cols: dict = {}
+    for lam in lams:
+        idx = [j for j, r in enumerate(mb.requests) if r.damping == lam]
+        Vg = tuple(vb[:, idx] for vb in mb.V) if blocked else mb.V[:, idx]
+        lg = torch.full((len(idx),), lam, dtype=torch.float32)
+        xg = solve_at(lam, Vg, lg)
+        for a, j in enumerate(idx):
+            cols[j] = tuple(xb[:, a] for xb in xg) if blocked else xg[:, a]
+    if blocked:
+        return tuple(torch.stack([cols[j][b] for j in range(mb.k)], dim=1)
+                     for b in range(len(mb.V)))
+    return torch.stack([cols[j] for j in range(mb.k)], dim=1)
 
 
 def _rows_k(rows) -> int:
@@ -313,43 +348,17 @@ class SolveServer:
         tenant's factor L_t swapped in for the resident L (the S passes —
         and on the card the ``serve_solve`` kernels — only ever see the
         shared window). Drift monitoring is skipped: the residual check is
-        defined against the base system, not the tenant's reweighted one.
-        A λ away from λ₀ (compared exactly, λ₀ being rounded to the
-        window's dtype) gets its own L_t; the solve takes λ rounded to
-        that dtype, as the reference's ``jnp.asarray(lam, lam0.dtype)``."""
+        defined against the base system, not the tenant's reweighted one."""
         st = self.state
-        lam0 = st.lam0
-        lams = sorted({r.damping for r in mb.requests})
-        blocked = isinstance(mb.V, (tuple, list))
 
-        def solve_at(lam: float, V, dampings):
-            L_t = self.tenants.factor(
-                st, mb.tenant, lam=None if lam == lam0 else lam)
+        def solve(L_t, lam: float, V, dampings):
             x, _ = _coalesced_solve(
-                st.S, st.W, L_t, real_scalar(lam, st.W.dtype), V, dampings,
-                mode=serve_mode(st), jitter=self.jitter, uniform=True,
-                monitor=False, refactorize=False, fused=self.fused)
+                st.S, st.W, L_t, lam, V, dampings, mode=serve_mode(st),
+                jitter=self.jitter, uniform=True, monitor=False,
+                refactorize=False, fused=self.fused)
             return x
 
-        if len(lams) == 1:
-            return solve_at(lams[0], mb.V, mb.dampings)
-        # mixed λ within one tenant: L_t must be rebuilt per λ anyway, so
-        # solve per-unique-λ column groups and reassemble
-        cols: dict = {}
-        for lam in lams:
-            idx = [j for j, r in enumerate(mb.requests) if r.damping == lam]
-            Vg = tuple(vb[:, idx] for vb in mb.V) if blocked \
-                else mb.V[:, idx]
-            lg = torch.full((len(idx),), lam, dtype=torch.float32)
-            xg = solve_at(lam, Vg, lg)
-            for a, j in enumerate(idx):
-                cols[j] = tuple(xb[:, a] for xb in xg) if blocked \
-                    else xg[:, a]
-        if blocked:
-            return tuple(
-                torch.stack([cols[j][b] for j in range(mb.k)], dim=1)
-                for b in range(len(mb.V)))
-        return torch.stack([cols[j] for j in range(mb.k)], dim=1)
+        return serve_tenant_microbatch(st, self.tenants, mb, solve)
 
     def _serve(self, mb: Microbatch) -> List[SolveResult]:
         st = self.state

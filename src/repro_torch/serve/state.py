@@ -31,7 +31,7 @@ from repro_torch.core.solvers import (CholFactorization, _realify, cholesky,
 __all__ = ["ServeStats", "ServeState", "init_serve_state", "serve_mode",
            "as_factorization", "resolve_device", "restore_serve_state",
            "save_serve_state", "serve_state_arrays", "serve_state_from_arrays",
-           "serve_state_from_tree", "serve_state_tree"]
+           "serve_state_from_tree", "serve_state_tree", "whole_window"]
 
 
 class ServeStats(NamedTuple):
@@ -53,6 +53,14 @@ def _host(t: torch.Tensor) -> np.ndarray:
 
 def _dtype_tag(t: torch.Tensor) -> str:
     return str(t.dtype).removeprefix("torch.")
+
+
+def whole_window(S, device=None):
+    """The window as one tensor (or ``BlockedScores``): a sharded window
+    (``repro_torch.dist``) gathered onto ``device`` (default: its first
+    position's), any other returned as it is."""
+    from repro_torch.dist.state import is_sharded
+    return S.gather(device) if is_sharded(S) else S
 
 
 class ServeState(NamedTuple):
@@ -80,8 +88,8 @@ class ServeState(NamedTuple):
         h = hashlib.blake2b(digest_size=16)
         h.update(b"full" if full else b"light")
         if full:
-            arrs = (*(self.S.blocks if is_blocked(self.S) else (self.S,)),
-                    self.W, self.L)
+            S = whole_window(self.S, "cpu")
+            arrs = (*(S.blocks if is_blocked(S) else (S,)), self.W, self.L)
         else:
             arrs = (self.W, self.L)
         for t in arrs:
@@ -156,8 +164,9 @@ def as_factorization(state: ServeState, *,
                      jitter: float = 0.0) -> CholFactorization:
     """View the resident state as a ``CholFactorization`` (multi-RHS
     ``solve``, ``with_damping``, ``solve_batch``, ``update``/``downdate``)."""
-    return CholFactorization(S=state.S, mode=serve_mode(state), W=state.W,
-                             L=state.L, lam=state.lam0, jitter=jitter,
+    return CholFactorization(S=whole_window(state.S, state.W.device),
+                             mode=serve_mode(state), W=state.W, L=state.L,
+                             lam=state.lam0, jitter=jitter,
                              take_real_v=False)
 
 
@@ -175,7 +184,8 @@ def serve_state_tree(state: ServeState) -> ServeState:
     reference holds them in."""
     def scalar(key, value):
         return np.asarray(value, _SCALARS[key])
-    S = tuple(state.S.blocks) if is_blocked(state.S) else state.S
+    S = whole_window(state.S, "cpu")
+    S = tuple(S.blocks) if is_blocked(S) else S
     stats = ServeStats(*(scalar(f"stats_{f}", v)
                          for f, v in zip(state.stats._fields, state.stats)))
     return ServeState(S=S, W=state.W, L=state.L,
@@ -206,7 +216,9 @@ def save_serve_state(ckpt_dir, step: int, state: ServeState, *,
     manifest: ``metadata`` carries ``{"kind": "serve_state", "blocked":
     ...}`` plus the caller's."""
     from repro_torch.checkpoint import checkpoint as ckpt
-    meta = {"kind": "serve_state", "blocked": bool(is_blocked(state.S)),
+    from repro_torch.dist.state import is_sharded
+    blocked = state.S.blocked if is_sharded(state.S) else is_blocked(state.S)
+    meta = {"kind": "serve_state", "blocked": bool(blocked),
             **(metadata or {})}
     return ckpt.save(ckpt_dir, step, serve_state_tree(state), metadata=meta,
                      keep=keep)
@@ -227,9 +239,9 @@ def serve_state_arrays(state: ServeState) -> Tuple[dict, dict]:
     """Flatten a ``ServeState`` to named host arrays + a JSON-safe meta
     dict, in ``repro.serve.state.serve_state_arrays``'s format. Inverse:
     ``serve_state_from_arrays`` (of either package)."""
-    blocks = state.S.blocks if is_blocked(state.S) else (state.S,)
-    names = list(state.S.names) if is_blocked(state.S) \
-        and state.S.names is not None else None
+    S = whole_window(state.S, "cpu")
+    blocks = S.blocks if is_blocked(S) else (S,)
+    names = list(S.names) if is_blocked(S) and S.names is not None else None
     arrays: dict = {}
     dtypes: dict = {}
     for i, b in enumerate(blocks):
@@ -243,7 +255,7 @@ def serve_state_arrays(state: ServeState) -> Tuple[dict, dict]:
     for key, value in values.items():
         a = np.asarray(value, _SCALARS[key])
         arrays[key], dtypes[key] = a, str(a.dtype)
-    meta = {"blocked": bool(is_blocked(state.S)),
+    meta = {"blocked": bool(is_blocked(S)),
             "n_blocks": len(blocks), "names": names, "dtypes": dtypes}
     return arrays, meta
 

@@ -84,8 +84,20 @@ def init_tenant_delta(n: int, rank: int, *, dtype=torch.float32,
                        cursor=0, age=0)
 
 
+def _rows2d(r) -> torch.Tensor:
+    r = torch.as_tensor(r)
+    return r[None, :] if r.ndim == 1 else r
+
+
 def _sv_pass(S, rows, *, mode: str) -> torch.Tensor:
-    """u = S·rows† (n, k): the one m-sized pass of a tenant fold."""
+    """u = S·rows† (n, k): the one m-sized pass of a tenant fold; slab by
+    slab on a sharded window (``repro_torch.dist``)."""
+    from repro_torch.dist.state import is_sharded
+    if is_sharded(S):
+        acc = torch.promote_types(S.dtype, torch.float32)
+        rows = tuple(_rows2d(r) for r in rows) \
+            if isinstance(rows, (tuple, list)) else _rows2d(rows)
+        return S.cross(rows, lambda b, r: b.to(acc) @ ct(r, mode).to(acc))
     row_blocks = tuple(rows) if isinstance(rows, (tuple, list)) else (rows,)
     S_blocks = S.blocks if is_blocked(S) else (S,)
     acc = torch.promote_types(S_blocks[0].dtype, torch.float32)

@@ -122,18 +122,22 @@ def test_cli_serves_on_the_cpu(capsys, tmp_path):
 
 # the cases keep the ids they had before the checkpoint and observability
 # flags left this list; --tenants (flag3) is ported (A5) and checked at
-# the parser: it parses and asks for no later slice
+# the parser: it parses and asks for no later slice (the tenant flag since
+# A5, the async and mesh flags since A7: tests/test_torch_serve_mesh.py
+# serves with them); the fleet's flags still raise, naming A8
 @pytest.mark.parametrize("flag", [
     ["--fleet", "2"], ["--async"], ["--mesh", "1d"], ["--tenants", "4"],
     ["--mesh-shape", "1,2"], ["--no-reconcile"]],
     ids=["flag0", "flag1", "flag2", "flag3", "flag12", "flag13"])
 def test_later_flags_raise(flag):
-    if flag[0] == "--tenants":
+    if flag[0] not in ("--fleet", "--no-reconcile"):
         args = _parser().parse_args(flag)
-        assert args.tenants == 4
+        dest = flag[0].lstrip("-").replace("-", "_")
+        got = getattr(args, "async_" if dest == "async" else dest)
+        assert str(got) == (flag[1] if len(flag) > 1 else "True")
         assert not any(asked for asked, _ in _later_flags(args).values())
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
         serve_main(["--device", "cpu"] + flag)
 
 
@@ -153,15 +157,17 @@ def test_ported_serve_flags_are_not_refused(flag):
 @pytest.mark.parametrize("option", [
     {"layout": "1d"}, {"async_": True}, {"tenant_rank": 2}])
 def test_later_server_options_raise(option):
-    if "tenant_rank" in option:
-        # ported (A5): an option of build_server that asks for no later
-        # slice (tests/test_torch_tenant_serve.py builds one)
-        assert "tenant_rank" in inspect.signature(build_server).parameters
-        assert not set(option) & set(trainer_mod._LATER)
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
-        build_server(tconfigs.get_smoke(ARCH), window=4, seq=8,
-                     device="cpu", **option)
+    """Every option of build_server is ported (tenant_rank since A5,
+    layout and async_ since A7; tests/test_torch_tenant_serve.py and
+    tests/test_torch_serve_mesh.py build with them): none asks for a
+    later slice, and a layout without the async server raises the
+    reference's ValueError."""
+    assert set(option) <= set(inspect.signature(build_server).parameters)
+    assert not hasattr(trainer_mod, "_LATER")
+    if "layout" in option:
+        with pytest.raises(ValueError, match="async"):
+            build_server(tconfigs.get_smoke(ARCH), window=4, seq=8,
+                         device="cpu", **option)
 
 
 def _small_state():
