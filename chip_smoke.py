@@ -223,6 +223,7 @@ from repro_torch.core import (BlockedScores, chol_factorize,  # noqa: E402
 from repro_torch.core.pytree import leaves, tree_map  # noqa: E402
 from repro_torch.core.distributed import (  # noqa: E402
     sharded_chol_solve, sharded_chol_solve_2d)
+from repro_torch.data import SyntheticLM  # noqa: E402
 from repro_torch.curvature import (CurvatureCache,  # noqa: E402
                                    StreamingCurvature, StreamingGram)
 from repro_torch.dist import (AsyncSolveServer, DistSpec,  # noqa: E402
@@ -237,14 +238,19 @@ from repro_torch.kernels.serve_solve import (  # noqa: E402
     cross_tensor_cores, kernels_launched, stream_route_of, trisolve_columns)
 from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.launch.train import (batch_to, make_prefill,  # noqa: E402
-                                      make_serve_step)
+                                      make_ngd_train_step, make_serve_step)
 from repro_torch.launch.trainer import (build_server,  # noqa: E402
                                         build_trainer, train_main)
 from repro_torch.models import encdec, get_api  # noqa: E402
 from repro_torch.models import lm as model_lm  # noqa: E402
 from repro_torch.models import layers as model_layers  # noqa: E402
-from repro_torch.optim import (NaturalGradient,  # noqa: E402
-                               params_from_arrays, per_sample_score_blocks)
+from repro_torch.optim import (AdamW, HybridNGD,  # noqa: E402
+                               Int8ErrorFeedback, NaturalGradient,
+                               bf16_allreduce, params_from_arrays,
+                               partition_params, merge_params,
+                               per_sample_score_blocks, per_sample_scores,
+                               warmup_cosine)
+from repro_torch.optim.scores import grad_and_value  # noqa: E402
 from repro_torch.obs import (FlightRecorder, HealthMonitor,  # noqa: E402
                              MetricsRegistry, Tracer, analyze, load_bundle)
 from repro_torch.serve import (FoldJournal, OnlineAdaptation,  # noqa: E402
@@ -411,6 +417,34 @@ TRAIN_REFRESH, TRAIN_STREAM_LAM, TRAIN_STREAM_EXPECT = 3, 0.1, (2, 4)
 # by v's part off the rows of S (the bf16 roundings of the gradient and
 # of the scores), which x carries as itself/λ (PERF.md §6).
 TRAIN_LOSS_GATE, TRAIN_RES_GATE = 1e-3, 1e-3
+# 13f. The same trainer over a (2, 2) ("data", "model") mesh whose four
+# positions lie on the one card (ROADMAP A7's training half): each layout
+# — 1d, 2d, flat scores (samples over all four positions, then one
+# reshard), blocked — takes MESH_STEPS exact steps from the seed through
+# ops.chol_solve_fused, with the one-position run's schedule. Gates: step
+# 0's natural gradient within the one-position kernel step's natgrad64
+# distance to the float64 solve (max-abs, ``err``) plus TRAIN_RES_GATE (its
+# residual is printed: rounding leads it, as above); both losses within
+# TRAIN_LOSS_GATE of the one-position run's; per step one gram_sv and one
+# ngd_apply a column slab (a block and slab when blocked), one cholesky
+# and one substitution; a rerun bit for bit. Then one HybridNGD step with
+# the embedding table as NGD's subset (128,256 × 3,072, S 8 × 394M bf16),
+# bit for bit its NaturalGradient and AdamW halves alone; bf16_allreduce
+# and Int8ErrorFeedback over the LM's gradient in MESH_DP pieces, bf16
+# within COMPRESS_GATE of the fp32 sum relative to its max
+# (tests/test_distributed.py:234), the card within COMPRESS_CPU_GATE of
+# the CPU; and train_main --smoke --mesh-shape 2,2 on the card and the CPU
+# (ngd and adamw, MESH_CLI_STEPS steps, losses within TRAIN_LOSS_GATE).
+# The streaming policy over the mesh (1d) runs the one-position streaming
+# run's TRAIN_STREAM_STEPS steps: its losses within TRAIN_LOSS_GATE, the
+# same refreshes and hits, per slab a gram_sv a refresh, an sv_cross a
+# hit.
+# The positions share the card: the times are agreement and launch
+# checks, not multi-card speed.
+MESH_SHAPE, MESH_STEPS, MESH_DP = (2, 2), 2, 4
+MESH_LAYOUTS = {"1d": {}, "2d": {"score_sharding": "2d"},
+                "flat": {"flat_scores": True}, "blocked": {"blocked": True}}
+COMPRESS_GATE, COMPRESS_CPU_GATE, MESH_CLI_STEPS = 2e-2, 1e-6, 3
 # 14a. LM serving, MoE and Mamba2 (the families of ROADMAP A6's first
 # half) at published widths, cut in depth so that the serving window of
 # n = 8 score rows and a fold's copy of it fit the card; bf16 weights.
@@ -3448,6 +3482,7 @@ def whisper_trainer_path(device="cuda") -> dict:
     for kname in ("gram_sv", "cholesky", "trisolve", "ngd_apply"):
         require_launches("whisper-base NGD trainer", counts, kname)
     del kern
+    SEEDED.clear()
     gc.collect()
     return {"counts": counts}
 
@@ -3460,6 +3495,8 @@ class FirstSolve:
     """A solver that keeps its first call's operands and result, (S, v,
     x, λ), for the residual check after the step; ``take`` hands them
     over once."""
+
+    takes_sharded = True        # passes a ShardedScores on to its solver
 
     def __init__(self, solver):
         self.solver, self.first, self.armed = solver, None, True
@@ -3524,6 +3561,23 @@ def natgrad64(S, v, x, lam: float, chunk: int = 1 << 25) -> dict:
             "off_share": (off2 / acc["x2_64"]) ** 0.5 / lam}
 
 
+SEEDED: dict = {}
+
+
+def seed_params(cfg, device: str):
+    """The weights ``build_trainer`` draws from SEED for ``cfg`` (the CPU
+    generator, then the device), drawn once and shared by the trainer
+    phases: a draw of the 2-layer LM takes ≈ 4 s of the host, and no step
+    writes into its parameters. Holds one model; ``SEEDED.clear()`` drops
+    it."""
+    key = (cfg, device)
+    if key not in SEEDED:
+        SEEDED.clear()
+        SEEDED[key] = get_api(cfg).init_params(
+            torch.Generator().manual_seed(SEED), device)
+    return SEEDED[key]
+
+
 def add_launches(counts: dict, routes: dict) -> None:
     """Add the launches since the last reset, by kernel and by Gram route."""
     for key, n in ops.launch_counts().items():
@@ -3551,7 +3605,8 @@ def train_run(cfg, label: str, steps: int, *, solver="chol",
         cfg, optimizer_name="ngd", lr=TRAIN_LR, damping=damping,
         batch=TRAIN_BATCH, seq=TRAIN_SEQ, total_steps=steps,
         solver=first or solver, blocked=blocked, curvature=curvature,
-        curvature_refresh=TRAIN_REFRESH, seed=SEED, device=device)
+        curvature_refresh=TRAIN_REFRESH, seed=SEED,
+        params=seed_params(cfg, device), device=device)
     if device == "cuda":
         torch.cuda.reset_peak_memory_stats()
     state = init_state()
@@ -3659,7 +3714,9 @@ def lm_trainer_path(cfg, device: str = "cuda") -> dict:
     ``ops.chol_solve_fused`` against the same steps on the plain versions,
     (b) the same blocked, (c) the streaming curvature policy, (d) a
     checkpoint round trip; one profiled step. Returns the kernel launches
-    of the kernel-route steps (``counts``) and the parameter count m."""
+    of the kernel-route steps (``counts``), the parameter count m and the
+    dense and blocked kernel runs' losses, step ms and step 0's natural
+    gradient against float64 (``one``, the mesh phase's reference)."""
     counts = dict.fromkeys(ops.launch_counts(), 0)
     routes = dict.fromkeys(GRAM_ROUTES, 0)
     ckpt_dir = Path(__file__).resolve().parent / "build" / "lm_trainer_ckpt"
@@ -3685,6 +3742,7 @@ def lm_trainer_path(cfg, device: str = "cuda") -> dict:
           f"{TRAIN_STREAM_EXPECT})", flush=True)
     if got != TRAIN_STREAM_EXPECT:
         raise AssertionError(f"LM trainer (streaming): refreshes, hits {got}")
+    runs_stream = {key: stream[key] for key in ("losses", "ms")}
     del stream
     gc.collect()
     if device == "cuda":
@@ -3715,9 +3773,384 @@ def lm_trainer_path(cfg, device: str = "cuda") -> dict:
         profile_gram_path("one LM NGD step (exact, dense, kernels)",
                           lambda: dense["step_fn"](restored, 2))
         require_tensor_core_gram("LM NGD trainer", routes)
+    one = {part: {key: run[key] for key in ("losses", "ms", "natgrad")}
+           for part, run in runs.items()}
+    one["streaming"] = runs_stream
     del restored, runs, dense
     gc.collect()
-    return {"counts": counts, "m": m}
+    return {"counts": counts, "m": m, "one": one}
+
+
+# ---------------------------------------------------------------------------
+# 13f. the NGD trainer over a mesh of the card (ROADMAP A7's training half)
+# ---------------------------------------------------------------------------
+
+def slab_view(S, v, x):
+    """A ``ShardedScores``'s slabs as one ``BlockedScores`` in column order
+    (block-major, then position), v and x cut the same way: what
+    ``natgrad64`` reads. No copy: the slabs lie on the one card."""
+    v_blocks = tuple(v) if S.blocked else (v,)
+    x_blocks = tuple(x) if S.blocked else (x,)
+    blocks, vs, xs = [], [], []
+    for b in range(len(S.slabs[0])):
+        widths = [slab[b].shape[1] for slab in S.slabs]
+        blocks += [slab[b] for slab in S.slabs]
+        vs += torch.split(v_blocks[b], widths)
+        xs += torch.split(x_blocks[b], widths)
+    return BlockedScores(blocks), tuple(vs), tuple(xs)
+
+
+def mesh_train_run(cfg, mesh, layout: dict, steps: int, total_steps: int,
+                   device: str = "cuda", check: bool = True,
+                   damping: float = TRAIN_LAM, curvature=None) -> dict:
+    """``steps`` NGD steps of ``make_ngd_train_step`` over ``mesh``
+    (``layout``: its keywords) from the seed's weights, as
+    ``build_trainer``'s NGD at train_main's defaults with a
+    ``total_steps`` schedule: exact through ``ops.chol_solve_fused``, or
+    under a ``curvature`` policy. Returns the losses, step ms (host clock,
+    ended by a sync), each step's launches, the last metrics, the final
+    params, the peak and (``check``, exact) step 0's natural gradient
+    against float64 on its own slabs."""
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    api = get_api(cfg)
+    data = SyntheticLM(cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=SEED)
+    first = FirstSolve(ops.chol_solve_fused)
+    opt = NaturalGradient(
+        warmup_cosine(TRAIN_LR, warmup_steps=max(total_steps // 20, 1),
+                      total_steps=total_steps),
+        damping=damping, solver=first if check else ops.chol_solve_fused,
+        curvature=curvature)
+    params = seed_params(cfg, device)
+    state = opt.init(params)
+    step = make_ngd_train_step(api, opt, mesh, **layout)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    out = {"losses": [], "ms": [], "counts": [], "natgrad": None}
+    for s_ in range(steps):
+        sync()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        params, state, metrics = step(params, state, data.batch_at(s_))
+        out["losses"].append(float(metrics["loss"]))
+        sync()
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        out["counts"].append(ops.launch_counts())
+        if first.first is not None:
+            S, v, x, lam = first.take()
+            out["natgrad"] = natgrad64(*slab_view(S, v, x), lam)
+            del S, v, x
+    out["peak"] = torch.cuda.max_memory_allocated() / 1e9 \
+        if device == "cuda" else 0.0
+    out["params"], out["metrics"] = params, metrics
+    return out
+
+
+def expected_mesh_launches(blocks: int) -> dict:
+    """A step's launches over a (data, model) mesh: one ``gram_sv`` and one
+    ``ngd_apply`` a column slab of every block, one ``cholesky`` and one
+    substitution."""
+    slabs = MESH_SHAPE[1] * blocks
+    return {"gram_sv": slabs, "ngd_apply": slabs, "cholesky": 1,
+            "trisolve": 1}
+
+
+def mesh_layouts_path(cfg, one: dict, device: str = "cuda") -> dict:
+    """(a) Each layout's MESH_STEPS steps against the one-position kernel
+    run (``one``: ``lm_trainer_path``'s), gated as the constants say, then
+    a rerun bit for bit. Returns each layout's launches (first runs)."""
+    mesh = make_mesh(MESH_SHAPE, ("data", "model"), device=device)
+    out = {}
+    for name, layout in MESH_LAYOUTS.items():
+        part = "blocked" if layout.get("blocked") else "dense"
+        total = TRAIN_BLOCKED_STEPS if part == "blocked" else TRAIN_STEPS
+        run = mesh_train_run(cfg, mesh, layout, MESH_STEPS, total, device)
+        again = mesh_train_run(cfg, mesh, layout, MESH_STEPS, total, device,
+                               check=False)
+        same = run["losses"] == again["losses"] and all(
+            torch.equal(a, b) for a, b in zip(leaves(run["params"]),
+                                             leaves(again["params"])))
+        blocks = len(leaves(run["params"])) if part == "blocked" else 1
+        want = expected_mesh_launches(blocks)
+        counts = {}
+        for c in run["counts"]:
+            add_counts(counts, c)
+        ref, ng, ng1 = one[part], run["natgrad"], one[part]["natgrad"]
+        errs = [abs(a - b) / abs(b) for a, b in
+                zip(run["losses"], ref["losses"])]
+        print(f"  ({name}) loss " + " ".join(
+            f"{x:.6f}" for x in run["losses"]) + " (one position "
+            + " ".join(f"{x:.6f}" for x in ref["losses"][:MESH_STEPS])
+            + f"; worst {max(errs):.2e}, gate {TRAIN_LOSS_GATE:g}); step ms "
+            + " ".join(f"{x:.1f}" for x in run["ms"]) + " (rerun "
+            + " ".join(f"{x:.1f}" for x in again["ms"]) + "; one position "
+            + " ".join(f"{x:.1f}" for x in ref["ms"][:MESH_STEPS])
+            + f"); step 0's natural gradient {ng['err']:.3e} from the "
+            f"float64 solve (one position {ng1['err']:.3e}; gate ≤ that + "
+            f"{TRAIN_RES_GATE:g}), residual {ng['residual']:.3e} (one "
+            f"position {ng1['residual']:.3e}; printed: rounding leads it at "
+            f"λ = {TRAIN_LAM:g}); launches a step "
+            + ", ".join(f"{k}={v}" for k, v in run["counts"][0].items()
+                        if v)
+            + f" (expected {want}); peak {run['peak']:.2f} GB; rerun bit "
+            f"for bit: {same}", flush=True)
+        if not max(errs) < TRAIN_LOSS_GATE or not same:
+            raise AssertionError(f"mesh trainer ({name}): losses "
+                                 f"{max(errs):.3e} from one position, "
+                                 f"rerun equal {same}")
+        if not ng["err"] <= ng1["err"] + TRAIN_RES_GATE:
+            raise AssertionError(f"mesh trainer ({name}): natural gradient "
+                                 f"{ng['err']:.3e} from float64, one "
+                                 f"position {ng1['err']:.3e}")
+        if device == "cuda":
+            for c in run["counts"]:
+                for kname, n in want.items():
+                    require_launches(f"mesh trainer ({name})", c, kname, n)
+        out[name] = counts
+        del run, again
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    out["streaming"] = mesh_streaming_run(cfg, mesh, one["streaming"],
+                                          device)
+    return out
+
+
+def mesh_streaming_run(cfg, mesh, one: dict, device: str = "cuda") -> dict:
+    """The streaming policy over the mesh (1d), as the one-position
+    streaming run (λ = TRAIN_STREAM_LAM, a refresh every TRAIN_REFRESH):
+    its losses within TRAIN_LOSS_GATE of ``one``'s, the same refreshes and
+    hits; a refresh launches one ``gram_sv`` a slab, a hit one
+    ``sv_cross`` a slab, every step one ``ngd_apply`` a slab, one
+    ``cholesky`` and one substitution. Returns its launches."""
+    policy = StreamingCurvature(TRAIN_BATCH, refresh_every=TRAIN_REFRESH,
+                                device=device)
+    run = mesh_train_run(cfg, mesh, {}, TRAIN_STREAM_STEPS,
+                         TRAIN_STREAM_STEPS, device, check=False,
+                         damping=TRAIN_STREAM_LAM, curvature=policy)
+    counts = {}
+    for c in run["counts"]:
+        add_counts(counts, c)
+    got = (run["metrics"]["curvature_refreshes"],
+           run["metrics"]["curvature_hits"])
+    errs = [abs(a - b) / abs(b) for a, b in zip(run["losses"],
+                                                one["losses"])]
+    slabs, steps = MESH_SHAPE[1], TRAIN_STREAM_STEPS
+    want = {"gram_sv": slabs * got[0], "sv_cross": slabs * got[1],
+            "ngd_apply": slabs * steps, "cholesky": steps,
+            "trisolve": steps}
+    print(f"  (1d, streaming, refresh every {TRAIN_REFRESH}, λ = "
+          f"{TRAIN_STREAM_LAM:g}) loss " + " ".join(
+              f"{x:.6f}" for x in run["losses"]) + " (one position "
+          + " ".join(f"{x:.6f}" for x in one["losses"])
+          + f"; worst {max(errs):.2e}, gate {TRAIN_LOSS_GATE:g}); step ms "
+          + " ".join(f"{x:.1f}" for x in run["ms"]) + " (one position "
+          + " ".join(f"{x:.1f}" for x in one["ms"]) + f"); refreshes, "
+          f"hits {got} (expected {TRAIN_STREAM_EXPECT}); launches "
+          + ", ".join(f"{k}={v}" for k, v in counts.items() if v)
+          + f" (expected {want}); peak {run['peak']:.2f} GB", flush=True)
+    if got != TRAIN_STREAM_EXPECT or not max(errs) < TRAIN_LOSS_GATE:
+        raise AssertionError(f"mesh trainer (streaming): {got}, losses "
+                             f"{max(errs):.3e} from one position")
+    if device == "cuda":
+        for kname, n in want.items():
+            require_launches("mesh trainer (streaming)", counts, kname, n)
+    return counts
+
+
+def hybrid_path(cfg, device: str = "cuda") -> dict:
+    """(b) One ``HybridNGD`` step, NGD on the embedding table through
+    ``ops.chol_solve_fused`` and AdamW on the rest: its update against
+    ``NaturalGradient`` on the subset alone and ``AdamW`` on the rest,
+    bit for bit. Returns the hybrid step's launches."""
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    api = get_api(cfg)
+    keep = (lambda path: path == "embed")
+    params = seed_params(cfg, device)
+    batch = batch_to(SyntheticLM(cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                                 seed=SEED).batch_at(0), device)
+    grads, _ = grad_and_value(api.loss, has_aux=True)(params, batch)
+    t0 = time.perf_counter()
+    S = per_sample_scores(
+        lambda pw, ex: api.sample_logp({**params, **pw}, ex),
+        {"embed": params["embed"]}, batch)
+    sync()
+    score_ms = (time.perf_counter() - t0) * 1e3
+
+    def ngd():
+        return NaturalGradient(TRAIN_LR, damping=TRAIN_LAM,
+                               solver=ops.chol_solve_fused)
+
+    hyb = HybridNGD(keep, ngd=ngd(), adamw=AdamW(3e-3))
+    hstate = hyb.init(params)
+    sync()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    upd, _ = hyb.update(grads, hstate, params, scores=S)
+    sync()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = ops.launch_counts()
+    gsel, grest = partition_params(grads, keep)
+    psel, prest = partition_params(params, keep)
+    alone, adamw = ngd(), AdamW(3e-3)
+    usel, _ = alone.update(gsel, alone.init(psel), psel, scores=S)
+    urest, _ = adamw.update(grest, adamw.init(prest), prest)
+    want = merge_params(usel, urest)
+    same = all(torch.equal(a, b) for a, b in zip(leaves(upd), leaves(want)))
+    moved = float(upd["embed"].float().abs().max())
+    s_gb = S.numel() * S.element_size() / 1e9
+    print(f"  (hybrid) NGD on embed {tuple(params['embed'].shape)} (S "
+          f"{tuple(S.shape)} {S.dtype}, {s_gb:.2f} GB, score pass "
+          f"{score_ms:.1f} ms), AdamW on the other "
+          f"{len(leaves(params)) - 1} leaves: update {ms:.1f} ms, launches "
+          + ", ".join(f"{k}={v}" for k, v in counts.items() if v)
+          + f"; bit for bit the two optimizers alone: {same}; embed moved "
+          f"by at most {moved:.3e}"
+          + (f"; peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB"
+             if device == "cuda" else ""), flush=True)
+    if not same or not np.isfinite(moved) or moved == 0.0:
+        raise AssertionError("HybridNGD: the update is not its two halves")
+    if device == "cuda":
+        for kname in ("gram_sv", "cholesky", "trisolve", "ngd_apply"):
+            require_launches("HybridNGD step", counts, kname, 1)
+    return counts
+
+
+def compress_path(cfg, device: str = "cuda") -> None:
+    """(c) ``bf16_allreduce`` and one ``Int8ErrorFeedback`` step over the
+    LM's gradient in MESH_DP data-parallel pieces of the batch: bf16
+    within COMPRESS_GATE of the fp32 sum relative to its max, and both
+    (the int8 residuals too) within COMPRESS_CPU_GATE of the CPU's."""
+    api = get_api(cfg)
+    params = seed_params(cfg, device)
+    batch = SyntheticLM(cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                        seed=SEED).batch_at(0)
+    step = TRAIN_BATCH // MESH_DP
+    grad = grad_and_value(api.loss, has_aux=True)
+    pos = [grad(params, batch_to({k: v[i * step:(i + 1) * step]
+                                  for k, v in batch.items()}, device))[0]
+           for i in range(MESH_DP)]
+    del params
+    host = [tree_map(lambda t: t.cpu(), g) for g in pos]
+    comp = Int8ErrorFeedback()
+    worst = {"bf16": 0.0, "bf16_cpu": 0.0, "int8": 0.0, "int8_cpu": 0.0,
+             "res_cpu": 0.0}
+    t0 = time.perf_counter()
+    bf = bf16_allreduce(pos)
+    q, qst = comp.allreduce(pos, [comp.init(g) for g in pos])
+    if device == "cuda":
+        torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bf_cpu = bf16_allreduce(host)
+    q_cpu, qst_cpu = comp.allreduce(host, [comp.init(g) for g in host])
+    cpu_s = time.perf_counter() - t0
+    big = 0.0
+
+    def gap(a, b) -> float:          # the CPU's result compared on a's device
+        return float((a - b.to(a.device)).abs().max())
+
+    for i, parts in enumerate(zip(*(leaves(g) for g in pos))):
+        exact = parts[0].float().clone()
+        for p_ in parts[1:]:
+            exact += p_.float()
+        big = max(big, float(exact.abs().max()))
+        worst["bf16"] = max(worst["bf16"], gap(leaves(bf)[i], exact))
+        worst["int8"] = max(worst["int8"], gap(leaves(q)[i], exact))
+        worst["bf16_cpu"] = max(worst["bf16_cpu"],
+                                gap(leaves(bf)[i], leaves(bf_cpu)[i]))
+        worst["int8_cpu"] = max(worst["int8_cpu"],
+                                gap(leaves(q)[i], leaves(q_cpu)[i]))
+        for a, b in zip(qst, qst_cpu):
+            worst["res_cpu"] = max(worst["res_cpu"], gap(
+                leaves(a.residual)[i], leaves(b.residual)[i]))
+        del exact
+    rel = {k: v / max(big, 1e-30) for k, v in worst.items()}
+    print(f"  (compression) {MESH_DP} pieces of the gradient "
+          f"({sum(t.numel() for t in leaves(bf)):,} values): bf16 "
+          f"{rel['bf16']:.3e} from the fp32 sum relative to its max (gate "
+          f"{COMPRESS_GATE:g}), int8 + error feedback {rel['int8']:.3e}; "
+          f"card vs CPU: bf16 {rel['bf16_cpu']:.3e}, int8 "
+          f"{rel['int8_cpu']:.3e}, residuals {rel['res_cpu']:.3e} (gate "
+          f"{COMPRESS_CPU_GATE:g}); {card_s:.2f} s on the card, "
+          f"{cpu_s:.2f} s on the CPU", flush=True)
+    if not rel["bf16"] < COMPRESS_GATE or not np.isfinite(rel["int8"]) or \
+            not max(rel["bf16_cpu"], rel["int8_cpu"],
+                    rel["res_cpu"]) < COMPRESS_CPU_GATE:
+        raise AssertionError(f"compressed all-reduce: {rel}")
+
+
+def mesh_cli_path() -> dict:
+    """(d) ``train_main --smoke --optimizer {ngd, adamw} --mesh-shape 2,2
+    --steps MESH_CLI_STEPS`` with every position on the card, and on the
+    CPU: every step's loss within TRAIN_LOSS_GATE. Returns the card runs'
+    launches."""
+    tmp = tempfile.mkdtemp(prefix="mesh_cli_")
+    total = {}
+    try:
+        for optimizer in ("ngd", "adamw"):
+            runs = {}
+            for dev in ("cuda", "cpu"):
+                ops.reset_launch_counts()
+                t0 = time.perf_counter()
+                losses, report = train_main(
+                    ["--arch", LM_ARCH, "--smoke", "--device", dev,
+                     "--optimizer", optimizer, "--mesh-shape", "2,2",
+                     "--steps", str(MESH_CLI_STEPS), "--ckpt-dir",
+                     os.path.join(tmp, f"{optimizer}_{dev}")])
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                runs[dev] = {"losses": losses, "report": report,
+                             "wall": time.perf_counter() - t0,
+                             "counts": ops.launch_counts()}
+            card, cpu = runs["cuda"], runs["cpu"]
+            add_counts(total, card["counts"])
+            errs = [abs(a - b) / abs(b) for a, b in zip(card["losses"],
+                                                        cpu["losses"])]
+            print(f"  train_main --smoke --optimizer {optimizer} --mesh-shape "
+                  f"2,2: card {card['wall']:.1f} s, CPU {cpu['wall']:.1f} s; "
+                  "losses on the card " + " ".join(
+                      f"{v:.6g}" for v in card["losses"])
+                  + "; vs the CPU per step " + " ".join(
+                      f"{v:.1e}" for v in errs)
+                  + f" (gate {TRAIN_LOSS_GATE:g}); card launches "
+                  + ", ".join(f"{k}={v}" for k, v in card["counts"].items()
+                              if v), flush=True)
+            if len(card["losses"]) != MESH_CLI_STEPS or \
+                    not card["report"]["completed"] or \
+                    not max(errs) < TRAIN_LOSS_GATE:
+                raise AssertionError(f"train_main --mesh-shape 2,2 "
+                                     f"({optimizer}): {max(errs):.3e}")
+        require_launches("train_main --mesh-shape 2,2 (ngd)", total,
+                         "gram_sv", MESH_SHAPE[1] * MESH_CLI_STEPS)
+        return total
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def mesh_trainer_path(cfg, one: dict) -> dict:
+    """The phase: (a) the layouts, (b) HybridNGD, (c) compression, (d) the
+    CLI. Returns the launches of (a), (b) and (d) by label."""
+    print(f"  {device_line()}: the four positions share this card, so the "
+          "times check agreement and launches, not multi-card speed",
+          flush=True)
+    t0 = time.perf_counter()
+    paths = {f"mesh trainer, {k}": v
+             for k, v in mesh_layouts_path(cfg, one).items()}
+    times = {"layouts": time.perf_counter() - t0}
+    for part, run in (("HybridNGD", lambda: hybrid_path(cfg)),
+                      ("compression", lambda: compress_path(cfg)),
+                      ("train_main", mesh_cli_path)):
+        t0 = time.perf_counter()
+        counts = run()
+        times[part] = time.perf_counter() - t0
+        if counts is not None:
+            paths[f"mesh trainer, {part}"] = counts
+        gc.collect()
+        torch.cuda.empty_cache()
+    SEEDED.clear()
+    print("  the parts' seconds: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in times.items()), flush=True)
+    return paths
 
 
 # ---------------------------------------------------------------------------
@@ -4127,6 +4560,18 @@ def main() -> int:
         require_launches("LM NGD trainer", paths["LM NGD trainer"], kname)
     gc.collect()
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase(f"LM NGD trainer over a {MESH_SHAPE} (data, model) mesh of four "
+          f"positions on the card: {', '.join(MESH_LAYOUTS)} ({MESH_STEPS} "
+          f"exact steps each, and a rerun), the streaming policy (1d, "
+          f"{TRAIN_STREAM_STEPS} steps), one HybridNGD step (NGD on the "
+          f"embedding), bf16 and int8 all-reduce of the gradient, "
+          f"train_main --smoke --mesh-shape 2,2 on the card and the CPU")
+    paths.update(mesh_trainer_path(lm_cfg, trainer["one"]))
+    SEEDED.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  {time.perf_counter() - t0:.1f} s", flush=True)
     phase(f"long prefill, {LM_ARCH}, all 28 layers, bf16, one prompt of "
           f"{LONG_T} tokens")
     paths["long prefill"] = long_prefill(configs.get_config(LM_ARCH),
@@ -4200,6 +4645,7 @@ def main() -> int:
                   "LM serving", "LM serving CLI",
                   "LM serving CLI, tenants", "LM serving CLI, sharded",
                   "LM NGD trainer",
+                  *(k for k in paths if k.startswith("mesh trainer")),
                   "long prefill") + tuple(
                       f"LM serving, {a}" for a, _, _, _ in ZOO_SERVED) + (
                       "mamba2 prefill + decode", "LM serving CLI, zoo",

@@ -24,6 +24,12 @@ a CPU slab their plain versions. An m (or n) that does not divide the
 mesh splits into slabs that differ by one column (``torch.tensor_split``;
 the reference's ``shard_map`` needs even shards). Real windows only, as
 the kernels.
+
+A train step that already holds S in column slabs (``launch.train``)
+passes them as they are: ``sharded_chol_solve_slabs`` takes per-position
+slabs and returns per-position x, and ``ShardedScores`` carries the slabs
+through ``NaturalGradient`` to it, so no flat (n, m) S is built on one
+position to be split again.
 """
 from __future__ import annotations
 
@@ -32,13 +38,15 @@ from typing import List, Sequence
 
 import torch
 
-from repro_torch.core.operator import is_blocked, materialize
-from repro_torch.core.solvers import real_scalar
+from repro_torch.core.operator import BlockedScores, is_blocked, materialize
+from repro_torch.core.solvers import _op_matvec, _op_rmatvec, real_scalar
 from repro_torch.kernels import ops
 from repro_torch.launch.mesh import Mesh, all_gather, psum
 
-__all__ = ["make_sharded_solver", "sharded_blocked_chol_solve",
-           "sharded_chol_solve", "sharded_chol_solve_2d"]
+__all__ = ["ShardedScores", "make_sharded_solver",
+           "sharded_blocked_chol_solve", "sharded_chol_solve",
+           "sharded_chol_solve_2d", "sharded_chol_solve_slabs",
+           "takes_sharded"]
 
 
 def _split(t: torch.Tensor, count: int, dim: int) -> tuple:
@@ -53,10 +61,15 @@ def _place(parts, devices) -> list:
 
 def _dual_solve_slabs(S_pos: Sequence[Sequence[torch.Tensor]],
                       v_pos: Sequence[Sequence[torch.Tensor]],
-                      damping, *, mode=None) -> List[List[torch.Tensor]]:
+                      damping, *, mode=None, W=None, jitter: float = 0.0,
+                      return_gram: bool = False):
     """Algorithm 1 over position-local slabs: ``S_pos[p]`` the blocks of
     position p (each (n, m_pb)), ``v_pos[p]`` their right-hand sides
-    ((m_pb,) or (m_pb, k)). Returns x in the same nesting."""
+    ((m_pb,) or (m_pb, k)). Returns x in the same nesting. ``W``: a cached
+    undamped Gram (n, n) fp32: the pass over the slabs then forms only u
+    (``sv_cross``), as ``CholFactorization`` re-damps a cached W;
+    ``jitter`` joins λ on the diagonal only; ``return_gram``: return (x,
+    the undamped W) — the streaming policy's refresh keeps it."""
     for blocks in S_pos:
         for b in blocks:
             if b.is_complex():
@@ -64,23 +77,29 @@ def _dual_solve_slabs(S_pos: Sequence[Sequence[torch.Tensor]],
                                 "kernels")
     lam = real_scalar(damping, torch.float32)
     multi = v_pos[0][0].ndim == 2
+    cached = W is not None
     W_parts, u_parts = [], []
     for blocks, vs in zip(S_pos, v_pos):
-        W = u = None
+        Wp = u = None
         for b, vb in zip(blocks, vs):
-            if multi:
-                W = ops.gram(b, mode=mode) if W is None \
-                    else ops.gram_acc(b, W, mode=mode)
+            if cached or multi:
+                if not cached:
+                    Wp = ops.gram(b, mode=mode) if Wp is None \
+                        else ops.gram_acc(b, Wp, mode=mode)
                 ub = ops.sv_cross(b, vb, mode=mode)
             else:
-                W, ub = ops.gram_sv(b, vb, W=W, mode=mode)
+                Wp, ub = ops.gram_sv(b, vb, W=Wp, mode=mode)
             u = ub if u is None else u + ub
-        W_parts.append(W)
+        W_parts.append(Wp)
         u_parts.append(u)
-    W = psum(W_parts)                       # replicated n×n from here on
     u = psum(u_parts)
-    W.diagonal().add_(lam)
-    L = ops.cholesky(W, mode=mode)
+    if cached:
+        W = W.to(u.device)
+    else:
+        W = psum(W_parts)                   # replicated n×n from here on
+    Wd = W.clone() if cached or return_gram else W
+    Wd.diagonal().add_(real_scalar(lam + jitter, torch.float32))
+    L = ops.cholesky(Wd, mode=mode)
     w = ops.trisolve(L, u, mode=mode)
     out = []
     for blocks, vs in zip(S_pos, v_pos):
@@ -88,7 +107,134 @@ def _dual_solve_slabs(S_pos: Sequence[Sequence[torch.Tensor]],
         apply = ops.serve_apply if multi else ops.ngd_apply
         out.append([apply(b, wd, vb, lam, mode=mode).to(vb.dtype)
                     for b, vb in zip(blocks, vs)])
-    return out
+    return (out, W) if return_gram else out
+
+
+def sharded_chol_solve_slabs(S_pos, v_pos, damping, *, mode=None) -> list:
+    """Algorithm 1 over per-position column slabs: ``S_pos[p]`` is
+    position p's slab (n, m_p), or its list of blocks [(n, m_pb), ...],
+    on p's device; ``v_pos[p]`` its right-hand side in the same form
+    ((m_p,) or (m_p, k) a slab). Returns x per position, in that form.
+    Per slab one ``gram_sv`` (the accumulator of the position's later
+    blocks) and one ``ngd_apply``; one ``psum`` of the n×n Gram, one
+    replicated ``cholesky`` and substitution."""
+    if len(S_pos) != len(v_pos):
+        raise ValueError(f"{len(S_pos)} slabs of S, {len(v_pos)} of v")
+    whole = [isinstance(s, torch.Tensor) for s in S_pos]
+    S_n = [[s] if one else list(s) for s, one in zip(S_pos, whole)]
+    v_n = [[v] if one else list(v) for v, one in zip(v_pos, whole)]
+    for blocks, vs in zip(S_n, v_n):
+        if len(blocks) != len(vs) or any(
+                b.shape[1] != vb.shape[0] for b, vb in zip(blocks, vs)):
+            raise ValueError("each slab of S needs a piece of v as wide")
+    x = _dual_solve_slabs(S_n, v_n, damping, mode=mode)
+    return [xp[0] if one else xp for xp, one in zip(x, whole)]
+
+
+def takes_sharded(solver) -> bool:
+    """Whether ``solver`` takes a ``ShardedScores`` as it is: its
+    ``takes_sharded`` attribute, or that of the function a
+    ``functools.partial`` wraps."""
+    return bool(getattr(getattr(solver, "func", solver), "takes_sharded",
+                        False))
+
+
+class ShardedScores:
+    """S held as column slabs over a mesh's positions, the form a
+    sharded train step builds: ``slabs[p]`` is position p's list of
+    blocks (one block for a dense S), each (n, m_pb) on p's device. Block
+    b's columns are its slabs' in position order. ``NaturalGradient``
+    hands it to its streaming curvature policy or to a solver that takes
+    it (``takes_sharded``: Algorithm 1, ``chol_solve`` and
+    ``ops.chol_solve_fused``), which run per slab; any other solver gets
+    ``gather()``."""
+
+    def __init__(self, slabs, *, blocked: bool, names=None):
+        self.slabs = [list(blocks) for blocks in slabs]
+        self.blocked = bool(blocked)
+        self.names = names
+        if not self.blocked and any(len(b) != 1 for b in self.slabs):
+            raise ValueError("a dense ShardedScores holds one block a slab")
+
+    @property
+    def n(self) -> int:
+        return self.slabs[0][0].shape[0]
+
+    @property
+    def block_widths(self) -> tuple:
+        return tuple(sum(blocks[b].shape[1] for blocks in self.slabs)
+                     for b in range(len(self.slabs[0])))
+
+    @property
+    def shape(self) -> tuple:
+        return (self.n, sum(self.block_widths))
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.slabs[0][0].dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.slabs[0][0].device
+
+    def split(self, v) -> list:
+        """A right-hand side (flat, or per block for a blocked S) as the
+        positions' pieces, each on its position's device."""
+        v_blocks = tuple(v) if self.blocked else (v,)
+        out = [[] for _ in self.slabs]
+        for b, vb in enumerate(v_blocks):
+            widths = [blocks[b].shape[1] for blocks in self.slabs]
+            for p, piece in enumerate(torch.split(vb, widths)):
+                out[p].append(piece.to(self.slabs[p][b].device).contiguous())
+        return out
+
+    def join(self, x_pos):
+        """The inverse of ``split``: per-position pieces gathered, on the
+        first position's device."""
+        blocks = tuple(all_gather([xp[b] for xp in x_pos], dim=0)
+                       for b in range(len(x_pos[0])))
+        return blocks if self.blocked else blocks[0]
+
+    def gather(self):
+        """S whole on the first position's device: a tensor, or a
+        ``BlockedScores`` for a blocked S."""
+        blocks = [all_gather([slab[b] for slab in self.slabs], dim=1)
+                  for b in range(len(self.slabs[0]))]
+        return BlockedScores(blocks, names=self.names) if self.blocked \
+            else blocks[0]
+
+    def solve(self, v, damping, *, mode=None):
+        """x of (SᵀS + λI)x = v by ``sharded_chol_solve_slabs``, in v's
+        form, on the first position's device."""
+        return self.join(sharded_chol_solve_slabs(
+            self.slabs, self.split(v), damping, mode=mode))
+
+    def solve_with_gram(self, v, damping, *, W=None, jitter: float = 0.0,
+                        mode=None):
+        """(x, the undamped Gram W): with ``W`` (a cached Gram) the slabs'
+        pass forms only u, one ``sv_cross`` a slab; without it one
+        ``gram_sv`` a slab forms both. The streaming curvature policy's
+        solve."""
+        x, W = _dual_solve_slabs(self.slabs, self.split(v), damping,
+                                 mode=mode, W=W, jitter=jitter,
+                                 return_gram=True)
+        return self.join(x), W
+
+    def residual(self, v, x, damping) -> torch.Tensor:
+        """‖(SᵀS + λI)x − v‖/‖v‖ over the slabs (plain products, widened a
+        column chunk at a time as ``core.solvers.residual``), the sums in
+        position order."""
+        v_pos, x_pos = self.split(v), self.split(x)
+        Sx = psum([sum(_op_matvec(b, xb) for b, xb in zip(blocks, xs))
+                   for blocks, xs in zip(self.slabs, x_pos)])
+        r2, v2 = [], []
+        for blocks, vs, xs in zip(self.slabs, v_pos, x_pos):
+            Sxd = Sx.to(blocks[0].device)
+            r2.append(sum(torch.sum(torch.square(
+                _op_rmatvec(b, Sxd, mode="real") + damping * xb - vb))
+                for b, vb, xb in zip(blocks, vs, xs)))
+            v2.append(sum(torch.sum(torch.square(vb)) for vb in vs))
+        return torch.sqrt(psum(r2)) / torch.sqrt(psum(v2))
 
 
 def _model_devices(mesh: Mesh, model_axis: str, extra_sum_axes, **fixed):

@@ -389,10 +389,22 @@ def chol_solve(S, v, damping, *, mode: Mode = "auto",
     """Algorithm 1: (SᵀS + λI) x = v through the Cholesky factor of the
     n×n Gram — W = S Sᵀ + λĨ, L = chol(W), u = S v, w = L⁻ᵀ L⁻¹ u,
     x = (v − Sᵀ w)/λ. ``v`` is (m,) or (m, k), or blocked pieces for a
-    blocked S; ``return_stats`` adds a ``SolverStats``."""
+    blocked S; ``return_stats`` adds a ``SolverStats``. A
+    ``core.distributed.ShardedScores`` runs per slab on the kernels
+    (``ShardedScores.solve``), with none of the other options."""
+    from repro_torch.core.distributed import ShardedScores
+    if isinstance(S, ShardedScores):
+        if gram_chunk is not None or gram_fn is not None or jitter \
+                or return_stats or mode not in ("auto", "real"):
+            raise TypeError("a ShardedScores is solved per slab; chol_solve's "
+                            "other options are for a whole S")
+        return S.solve(v, damping)
     fac = chol_factorize(S, damping, mode=mode, gram_chunk=gram_chunk,
                          gram_fn=gram_fn, jitter=jitter)
     return fac.solve(v, return_stats=return_stats)
+
+
+chol_solve.takes_sharded = True         # NaturalGradient: no gather first
 
 
 # ---------------------------------------------------------------------------

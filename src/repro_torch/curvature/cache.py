@@ -13,7 +13,12 @@ need not rerun every step. ``StreamingCurvature`` is the refresh policy:
   ``chol_factorize(W=...)`` (one O(n³) Cholesky, never a pass over S).
 
 The solve always uses the current S for its two passes; only W may go
-stale, and the drift check bounds that. ``StreamingCurvature.solve`` is
+stale, and the drift check bounds that. Over a mesh S comes as a
+``core.distributed.ShardedScores``: a refresh is one ``gram_sv`` a
+column slab and a ``psum`` (W and u in one pass), a hit one ``sv_cross``
+a slab against the cached W; the Cholesky, the substitution and W stay
+replicated, and each slab's x is its ``ngd_apply``.
+``StreamingCurvature.solve`` is
 pure in its ``CurvatureState`` (the cached W, an ``age`` and the
 ``CurvatureStats`` counters); ``CurvatureCache`` holds the state and is
 the one that mutates. The reference's ``lax.cond`` branches are Python
@@ -120,7 +125,14 @@ class StreamingCurvature:
         """x ≈ (SᵀS + λI)⁻¹v under the cached-W policy; returns
         (x, state'). S dense or blocked; v flat, (m, k) or blocked, echoed
         back in the same form. ``state`` is not modified. With a drift
-        bound the residual is read to the host (one sync per solve)."""
+        bound the residual is read to the host (one sync per solve). A
+        ``ShardedScores`` runs per slab on the kernels (real mode only).
+        """
+        # imported here: kernels.ref imports this package, and
+        # core.distributed imports the kernels
+        from repro_torch.core.distributed import ShardedScores
+        if isinstance(S, ShardedScores):
+            return self._solve_sharded(S, v, damping, state, damping_state)
         S = materialize(S)
         if S.dtype.is_complex and self.mode != "complex":
             raise ValueError(
@@ -155,12 +167,41 @@ class StreamingCurvature:
                 x = dual_solve(W2)
             refreshed = refresh_due or drift
 
+        return x, self._advance(state, W2, refreshed, r)
+
+    def _solve_sharded(self, S, v, damping, state: CurvatureState,
+                       damping_state):
+        """``solve`` over column slabs: the same policy, the Gram and the
+        solve per slab (``ShardedScores.solve_with_gram``)."""
+        if self.mode != "real":
+            raise ValueError("the sharded curvature policy is real-only, "
+                             "as the kernels")
+        lam = real_scalar(damping, torch.float32)
+
+        def dual_solve(W):
+            return S.solve_with_gram(v, lam, W=W, jitter=self.jitter)
+
+        refresh_due = state.age >= self.refresh_every
+        x, W1 = dual_solve(None if refresh_due else state.W)
+        tol = self.effective_drift_tol(damping_state)
+        if tol is None:
+            refreshed, W2, r = refresh_due, W1, -1.0
+        else:
+            r = float(S.residual(v, x, lam).to(torch.float32))
+            drift = not refresh_due and r > tol
+            x, W2 = dual_solve(None) if drift else (x, W1)
+            refreshed = refresh_due or drift
+        return x, self._advance(state, W2.to(self.acc_dtype), refreshed, r)
+
+    @staticmethod
+    def _advance(state: CurvatureState, W, refreshed: bool,
+                 r: float) -> CurvatureState:
         stats = CurvatureStats(
             hits=state.stats.hits + int(not refreshed),
             refreshes=state.stats.refreshes + int(refreshed),
             last_residual=r)
-        return x, CurvatureState(W=W2, age=1 if refreshed else state.age + 1,
-                                 stats=stats)
+        return CurvatureState(W=W, age=1 if refreshed else state.age + 1,
+                              stats=stats)
 
 
 class CurvatureCache:

@@ -1,4 +1,6 @@
-"""Deterministic synthetic data (port of ``repro.data``)."""
-from repro_torch.data.pipeline import SyntheticLM
+"""Deterministic synthetic data and its placement over a mesh (port of
+``repro.data``)."""
+from repro_torch.data.pipeline import (SyntheticLM, place, prefetch,
+                                       split_leading)
 
-__all__ = ["SyntheticLM"]
+__all__ = ["SyntheticLM", "place", "prefetch", "split_leading"]

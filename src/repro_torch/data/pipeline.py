@@ -8,19 +8,24 @@
   that blanks cross-document positions.
 
 Batches are numpy arrays; the score pass and the model move them to the
-parameters' device. ``place`` and ``prefetch`` (the reference's sharded
-placement and host pipeline) wait with the sharded tier.
+parameters' device. ``place`` lays one over a mesh's data-parallel axes
+(the reference's ``batch_spec``/``input_shardings``:
+``launch/shardings.py:105-121``), and ``prefetch`` keeps batches in
+flight ahead of the step.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 from typing import Iterator
 
 import numpy as np
+import torch
 
+from repro_torch.launch.mesh import Mesh, dp_axes
 from repro_torch.models.config import ModelConfig
 
-__all__ = ["SyntheticLM"]
+__all__ = ["SyntheticLM", "place", "prefetch", "split_leading"]
 
 
 @dataclasses.dataclass
@@ -77,3 +82,60 @@ class SyntheticLM:
         while True:
             yield self.batch_at(step)
             step += 1
+
+
+def split_leading(x, count: int) -> list:
+    """``count`` pieces of ``x`` along its leading axis, as the reference's
+    input shardings lay a batch over the DP axes: a 0-d leaf and a batch
+    of 1 are replicated; otherwise the axis splits evenly, and an axis
+    that does not divide raises, as ``jax.device_put`` does."""
+    if x.ndim == 0 or x.shape[0] == 1:
+        return [x] * count
+    if x.shape[0] % count:
+        raise ValueError(f"a leading axis of {x.shape[0]} does not split "
+                         f"over {count} data-parallel positions")
+    size = x.shape[0] // count
+    return [x[i * size:(i + 1) * size] for i in range(count)]
+
+
+def _tensor(x) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x
+    a = np.asarray(x)
+    return torch.from_numpy(a if a.ndim == 0 else np.ascontiguousarray(a))
+
+
+def place(batch: dict, mesh: Mesh) -> list:
+    """A host batch laid over ``mesh``: one batch a position, in position
+    order, on that position's device. Each leaf's leading axis is split
+    over ``dp_axes(mesh)`` (``split_leading``); positions that share a DP
+    index and a device share the tensors."""
+    dp = dp_axes(mesh)
+    count = 1
+    for a in dp:
+        count *= mesh.shape[a]
+    pieces = {k: split_leading(_tensor(x), count) for k, x in batch.items()}
+    made, out = {}, []
+    for coords in mesh.coords():
+        i = 0
+        for a in dp:
+            i = i * mesh.shape[a] + coords[a]
+        dev = mesh.device(**coords)
+        if (i, dev) not in made:
+            made[(i, dev)] = {k: p[i].to(dev) for k, p in pieces.items()}
+        out.append(made[(i, dev)])
+    return out
+
+
+def prefetch(it: Iterator, mesh: Mesh = None, depth: int = 1) -> Iterator:
+    """Software pipeline: keep ``depth`` batches in flight, each ``place``d
+    over ``mesh`` when one is given."""
+    buf = collections.deque()
+    for item in it:
+        if mesh is not None:
+            item = place(item, mesh)
+        buf.append(item)
+        if len(buf) > depth:
+            yield buf.popleft()
+    while buf:
+        yield buf.popleft()

@@ -296,7 +296,11 @@ def chol_solve_fused(S, v, damping, *, mode: Optional[str] = None):
     With a blocked S the same composition runs per block: (W, u)
     contributions add up across blocks, then the apply runs block by
     block; ``v`` may be flat or a tuple of per-block pieces and x comes
-    back in the same form."""
+    back in the same form. A ``core.distributed.ShardedScores`` runs the
+    same kernels per column slab (``ShardedScores.solve``)."""
+    from repro_torch.core.distributed import ShardedScores
+    if isinstance(S, ShardedScores):
+        return S.solve(v, damping, mode=mode)
     if is_blocked(S):
         return _chol_solve_fused_blocked(S, v, damping, mode=mode)
     lam = real_scalar(damping, torch.float32)
@@ -304,6 +308,9 @@ def chol_solve_fused(S, v, damping, *, mode: Optional[str] = None):
     W.diagonal().add_(lam)
     L = cholesky(W, mode=mode)
     return ngd_apply(S, trisolve(L, u, mode=mode), v, lam, mode=mode)
+
+
+chol_solve_fused.takes_sharded = True   # NaturalGradient: no gather first
 
 
 def _chol_solve_fused_blocked(S, v, damping, *, mode: Optional[str] = None):

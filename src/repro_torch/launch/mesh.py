@@ -26,7 +26,8 @@ from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 import torch
 
 __all__ = ["DATA", "MODEL", "POD", "Mesh", "all_gather", "dp_axes",
-           "make_mesh", "make_production_mesh", "ppermute", "psum"]
+           "make_mesh", "make_production_mesh", "mesh_from_shape",
+           "ppermute", "psum"]
 
 POD, DATA, MODEL = "pod", "data", "model"
 
@@ -91,6 +92,12 @@ class Mesh:
             flat = flat * self.shape[name] + i
         return self._flat[flat]
 
+    def coords(self) -> List[Dict[str, int]]:
+        """Every position's coordinates (axis name → index), in position
+        order."""
+        return [dict(zip(self.axis_names, idx)) for idx in
+                itertools.product(*(range(s) for s in self.shape.values()))]
+
     def axis_devices(self, axes: Iterable[str], **fixed: int
                      ) -> List[torch.device]:
         """Devices of the positions along ``axes`` (jointly, the first
@@ -141,6 +148,17 @@ def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
     Multi-pod: (2, 16, 16) ("pod", "data", "model") = 512."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = (POD, DATA, MODEL) if multi_pod else (DATA, MODEL)
+    return make_mesh(shape, axes, device=device)
+
+
+def mesh_from_shape(mesh_shape: str, device=None) -> Mesh:
+    """A ``--mesh-shape`` argument ("4", "2,2", "2,1,2") as a mesh with the
+    reference's axes: ("data",), ("data", "model") or ("pod", "data",
+    "model"). Without ``device`` the positions take a card each; with it
+    they all lie on ``device``."""
+    shape = tuple(int(x) for x in mesh_shape.split(","))
+    axes = (DATA, MODEL)[:len(shape)] if len(shape) <= 2 \
+        else (POD, DATA, MODEL)
     return make_mesh(shape, axes, device=device)
 
 

@@ -14,9 +14,9 @@ cpu``, where the kernels' plain versions run.
 ``build_server`` is the reference's: the eager replicated server, or
 with ``async_`` the concurrent ``AsyncSolveServer``, its window sharded
 over a mesh with ``layout``; with its observability hooks, audit and
-tenant manager. ``train_main``'s ``--mesh-shape`` away from ``1,1``
-raises ``NotImplementedError`` naming the queue that ports it
-(``repro_torch.roadmap``).
+tenant manager. ``build_trainer(mesh=)`` and ``train_main --mesh-shape``
+train over a mesh driven from this one process (``launch.train``): a
+mesh of one position is the one-device path.
 """
 from __future__ import annotations
 
@@ -32,11 +32,11 @@ from repro_torch.core.device import resolve_device
 from repro_torch.core.pytree import leaves, params_from_arrays, tree_map
 from repro_torch.data import SyntheticLM
 from repro_torch.launch import train as T
+from repro_torch.launch.mesh import mesh_from_shape
 from repro_torch.launch.supervisor import SupervisorConfig, run_supervised
 from repro_torch.models.api import get_api
 from repro_torch.optim import AdamW, NaturalGradient, warmup_cosine
 from repro_torch.optim.scores import flatten_like, per_sample_scores
-from repro_torch.roadmap import queue
 
 __all__ = ["ServeHandles", "build_server", "build_trainer", "train_main"]
 
@@ -49,9 +49,9 @@ def _place_params(params, dev: torch.device):
     return params_from_arrays(params, device=dev)
 
 
-def build_trainer(cfg, *, optimizer_name: str, lr: float, damping: float,
-                  batch: int, seq: int, total_steps: int, solver="chol",
-                  momentum: float = 0.9, score_chunk=None,
+def build_trainer(cfg, *, mesh=None, optimizer_name: str, lr: float,
+                  damping: float, batch: int, seq: int, total_steps: int,
+                  solver="chol", momentum: float = 0.9, score_chunk=None,
                   blocked: bool = False, curvature: str = "exact",
                   curvature_refresh: int = 10, curvature_drift_tol=None,
                   curvature_drift_frac=None, seed: int = 0, params=None,
@@ -75,13 +75,26 @@ def build_trainer(cfg, *, optimizer_name: str, lr: float, damping: float,
     overrides the autotune) — the O(n²·m) pass is skipped on cache-hit
     steps.
 
+    ``mesh`` (a ``launch.mesh.Mesh``; None: one position, the one-device
+    path): both steps run over it — the gradient data-parallel over its
+    DP axes, and for NGD S held as column slabs over its ``model`` axis,
+    Algorithm 1 (or the streaming policy) per slab on the kernels
+    (``launch.train``). The parameters and the optimizer state live on
+    the mesh's first device; ``device`` then must name that device or be
+    None.
+
     ``params``: a parameter tree (tensors, or numpy arrays such as the JAX
     LM's) that ``init_state`` starts from in place of one drawn from
     ``seed``. ``device``: CUDA by default (raises without a GPU); "cpu"
-    runs the plain versions. The reference's ``mesh`` is not taken (one
-    device), and ``step_fn`` has no ``jitted``/``shardings`` (PyTorch
-    runs eagerly).
+    runs the plain versions. ``step_fn`` has no ``jitted``/``shardings``
+    (PyTorch runs eagerly).
     """
+    if mesh is not None:
+        home = mesh.device()
+        if device is not None and T._canonical(device) != T._canonical(home):
+            raise ValueError(f"device={device!r} is not the mesh's first "
+                             f"device {home}")
+        device = home
     dev = resolve_device(device)
     api = get_api(cfg)
     data = SyntheticLM(cfg, batch=batch, seq=seq, seed=seed)
@@ -113,11 +126,12 @@ def build_trainer(cfg, *, optimizer_name: str, lr: float, damping: float,
             policy = None
         opt = NaturalGradient(sched, damping=damping, solver=solver,
                               momentum=momentum, curvature=policy)
-        tstep = T.make_ngd_train_step(api, opt, score_chunk=score_chunk,
+        tstep = T.make_ngd_train_step(api, opt, mesh,
+                                      score_chunk=score_chunk,
                                       blocked=blocked)
     else:
         opt = AdamW(sched)
-        tstep = T.make_train_step(api, opt)
+        tstep = T.make_train_step(api, opt, mesh=mesh)
 
     def init_state():
         p = api.init_params(torch.Generator().manual_seed(seed), dev) \
@@ -125,7 +139,8 @@ def build_trainer(cfg, *, optimizer_name: str, lr: float, damping: float,
         return {"params": p, "opt": opt.init(p)}
 
     def step_fn(state, step):
-        b = T.batch_to(data.batch_at(step), dev)
+        b = data.batch_at(step) if mesh is not None \
+            else T.batch_to(data.batch_at(step), dev)
         new_params, opt_state, metrics = tstep(state["params"], state["opt"],
                                                b)
         return {"params": new_params, "opt": opt_state}, metrics
@@ -352,14 +367,17 @@ def train_main(argv=None):
     ap.add_argument("--lr", type=float, default=None)
     ap.add_argument("--damping", type=float, default=1e-3)
     ap.add_argument("--mesh-shape", default="1,1",
-                    help="1,1 only: meshes come with the sharded tier")
+                    help="the mesh, as 4 ('data'), 2,2 ('data', 'model') or "
+                         "2,1,2 ('pod', 'data', 'model'): a card a "
+                         "position, or every position on --device")
     ap.add_argument("--ckpt-dir", default="artifacts/ckpt")
     ap.add_argument("--ckpt-every", type=int, default=25)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--inject-failure-at", type=int, default=None)
     args = ap.parse_args(argv)
-    if args.mesh_shape.replace(" ", "") != "1,1":
-        raise NotImplementedError(f"--mesh-shape comes with {queue('sharded')}")
+    # one position is the one-device path
+    mesh = None if all(int(x) == 1 for x in args.mesh_shape.split(",")) \
+        else mesh_from_shape(args.mesh_shape, args.device)
 
     cfg = configs.get_smoke(args.arch) if args.smoke \
         else configs.get_config(args.arch)
@@ -367,12 +385,14 @@ def train_main(argv=None):
         (0.05 if args.optimizer == "ngd" else 3e-3)
 
     init_state, step_fn, save_state, restore_state, _ = build_trainer(
-        cfg, optimizer_name=args.optimizer, lr=lr, damping=args.damping,
+        cfg, mesh=mesh, optimizer_name=args.optimizer, lr=lr,
+        damping=args.damping,
         batch=args.batch, seq=args.seq, total_steps=args.steps,
         solver=args.solver, blocked=args.blocked, curvature=args.curvature,
         curvature_refresh=args.curvature_refresh,
         curvature_drift_tol=args.curvature_drift_tol,
-        curvature_drift_frac=args.curvature_drift_frac, device=args.device)
+        curvature_drift_frac=args.curvature_drift_frac,
+        device=None if mesh is not None else args.device)
 
     losses = []
 

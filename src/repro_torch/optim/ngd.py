@@ -9,9 +9,14 @@ with the per-sample score matrix S passed beside the mean gradient v:
 
 ``scores`` is a dense (n, m) tensor or a ``BlockedScores`` /
 ``LazyBlockedScores`` operator whose blocks follow the gradient tree's
-flatten order. The state is per leaf: the momentum buffer is a tree
-shaped like the parameters (fp32, or complex64 for complex leaves), so
-with blocked scores no length-m vector exists anywhere. The solver is a
+flatten order, or a ``core.distributed.ShardedScores`` (column slabs over
+a mesh, dense or blocked): Algorithm 1 (``"chol"``,
+``ops.chol_solve_fused``) and the streaming policy solve it per slab on
+the kernels, and any other solver runs on the gathered S, as GSPMD
+partitions any solver with the same result. The state is per leaf: the
+momentum buffer is a tree shaped like the parameters (fp32, or complex64
+for complex leaves), so with blocked scores no length-m vector exists
+anywhere. The solver is a
 name in ``repro_torch.core.SOLVERS`` or any ``f(S, v, λ) -> x``, e.g.
 ``repro_torch.kernels.ops.chol_solve_fused``, which runs the hand-written
 kernels on CUDA tensors.
@@ -31,6 +36,7 @@ import torch
 
 from repro_torch.core import block_norm, get_solver, is_blocked
 from repro_torch.core.damping import ConstantDamping, DampingState
+from repro_torch.core.distributed import ShardedScores, takes_sharded
 from repro_torch.core.pytree import leaves, tree_map, unflatten_like
 from repro_torch.optim.schedules import constant
 from repro_torch.optim.scores import flatten_like
@@ -110,6 +116,10 @@ class NaturalGradient:
         """Solve (SᵀS + λI) x = v; returns (x as a grads-shaped tree,
         cstate')."""
         lam = damping.lam
+        sharded = isinstance(scores, ShardedScores)
+        if sharded and self.curvature is None \
+                and not takes_sharded(self.solver):
+            scores, sharded = scores.gather(), False
         if self.curvature is not None:
             # the whole DampingState rides along so a drift_frac policy can
             # autotune its refresh threshold from the trust-region ratio
@@ -120,7 +130,7 @@ class NaturalGradient:
             def solve(S, v, lam):
                 return self.solver(S, v, lam), None
         gl = leaves(grads)
-        if is_blocked(scores):
+        if is_blocked(scores) or (sharded and scores.blocked):
             # the gradient tree IS the blocked RHS: one (m_b,) piece per leaf
             widths = tuple(g.numel() for g in gl)
             if widths != tuple(scores.block_widths):

@@ -105,16 +105,20 @@ def _per_sample_grads(logp_fn: Callable, params, batch, *,
 def per_sample_score_blocks(logp_fn: Callable, params, batch, *,
                             chunk: Optional[int] = None,
                             center: bool = False, dtype=None, scale=None,
-                            device=None) -> BlockedScores:
+                            device=None, n_total=None) -> BlockedScores:
     """Blocked S: one (n, m_b) block per parameter leaf, never
     concatenated.
 
     ``center`` subtracts the sample mean (SR mode, paper §3); ``dtype`` is
     the blocks' storage dtype (default: the gradients'); ``scale``
     overrides the default 1/√n row multiplier (serving uses 1/√n_window).
+    ``n_total``: the n of the default 1/√n when ``batch`` is one piece of
+    a larger batch (a data-parallel position's rows are divided by the
+    whole batch's √n, as the single-device rows are).
     """
     params, batch = _on_device(params, device), _on_device(batch, device)
     G, n = _per_sample_grads(logp_fn, params, batch, chunk=chunk)
+    root_n = torch.tensor(float(n if n_total is None else n_total)).sqrt()
 
     def to_block(g):
         b = g.reshape(n, -1)
@@ -124,7 +128,7 @@ def per_sample_score_blocks(logp_fn: Callable, params, batch, *,
             b = b - b.mean(dim=0, keepdim=True)
         if scale is not None:
             return b * torch.as_tensor(scale, dtype=b.dtype)
-        return b / torch.tensor(float(n)).sqrt().to(b.dtype)
+        return b / root_n.to(b.dtype)
 
     pairs = leaves_with_path(G)
     return BlockedScores([to_block(g) for _, g in pairs],
@@ -144,12 +148,13 @@ def lazy_score_blocks(logp_fn: Callable, params, batch, *,
 
 def per_sample_scores(logp_fn: Callable, params, batch, *,
                       chunk: Optional[int] = None, center: bool = False,
-                      dtype=None, scale=None, device=None) -> torch.Tensor:
+                      dtype=None, scale=None, device=None,
+                      n_total=None) -> torch.Tensor:
     """Dense S (n, m): the blocked S concatenated in flatten order (the
     order of ``flatten_like``). Baselines and oracles; prefer the blocks."""
     return per_sample_score_blocks(
         logp_fn, params, batch, chunk=chunk, center=center, dtype=dtype,
-        scale=scale, device=device).to_dense()
+        scale=scale, device=device, n_total=n_total).to_dense()
 
 
 def make_fisher_matvec(logp_fn: Callable, params, batch, *,

@@ -7,13 +7,12 @@ from __future__ import annotations
 __all__ = ["QUEUES", "queue"]
 
 QUEUES = {
-    "sharded": ("A7", "the sharded tier"),
     "fleet": ("A8", "the fleet"),
     "launch": ("A9", "launch tooling"),
 }
 
 
 def queue(key: str) -> str:
-    """'ROADMAP A7 (the sharded tier)' for ``key`` = 'sharded'."""
+    """'ROADMAP A8 (the fleet)' for ``key`` = 'fleet'."""
     label, what = QUEUES[key]
     return f"ROADMAP {label} ({what})"

@@ -58,7 +58,7 @@ from repro_torch import configs
 from repro_torch.checkpoint import checkpoint as ckpt
 from repro_torch.core.damping import LevenbergMarquardtDamping
 from repro_torch.dist import AsyncSolveServer
-from repro_torch.launch.mesh import make_mesh
+from repro_torch.launch.mesh import mesh_from_shape as make_serve_mesh
 from repro_torch.launch.trainer import build_server
 from repro_torch.obs import (FlightRecorder, HealthMonitor, MetricsRegistry,
                              ProfileHooks, Tracer, start_metrics_server,
@@ -285,16 +285,6 @@ def _later_flags(args) -> dict:
         "--no-reconcile": (args.no_reconcile, "fleet"),
         "--route": (args.route != "round_robin", "fleet"),
     }
-
-
-def make_serve_mesh(mesh_shape: str, device=None):
-    """``--mesh-shape`` as a mesh, with the reference's axes: ("data",),
-    ("data", "model") or ("pod", "data", "model"). Without ``device`` the
-    positions take a card each; with it they all lie on ``device``."""
-    shape = tuple(int(x) for x in mesh_shape.split(","))
-    axes = ("data", "model")[:len(shape)] if len(shape) <= 2 \
-        else ("pod", "data", "model")
-    return make_mesh(shape, axes, device=device)
 
 
 def serve_main(argv=None):

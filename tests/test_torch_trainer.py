@@ -38,6 +38,7 @@ from repro_torch.core.pytree import params_from_arrays, params_to_arrays
 from repro_torch.curvature import StreamingCurvature
 from repro_torch.data import SyntheticLM
 from repro_torch.launch import train as ttrain
+from repro_torch.launch.mesh import make_mesh as make_torch_mesh
 from repro_torch.launch.trainer import build_trainer, train_main
 from repro_torch.models.api import get_api
 from repro_torch.optim import AdamW, NaturalGradient, warmup_cosine
@@ -163,18 +164,27 @@ def test_build_trainer_matches_jax(optimizer, jax_params):
                                    atol=PARAM_ATOL)
 
 
-def test_trainer_refusals():
-    """One device: the mesh arguments are refused naming the sharded tier;
-    an unknown curvature mode raises the reference's ValueError."""
-    api = get_api(tconfigs.get_smoke(ARCH))
-    opt = NaturalGradient(0.1)
-    for kw in ({"mesh": object()}, {"score_sharding": "2d"},
-               {"flat_scores": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-            ttrain.make_ngd_train_step(api, opt, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        train_main(["--arch", ARCH, "--smoke", "--device", "cpu",
-                    "--mesh-shape", "1,2"])
+def test_trainer_refusals(tmp_path):
+    """What one device once refused naming the sharded tier (ROADMAP A7)
+    is accepted: a mesh, ``score_sharding="2d"`` and ``flat_scores`` each
+    make a step that trains, and ``train_main --mesh-shape 1,2`` runs; an
+    unknown curvature mode raises the reference's ValueError."""
+    cfg = tconfigs.get_smoke(ARCH)
+    api = get_api(cfg)
+    batch = SyntheticLM(cfg, batch=BATCH, seq=SEQ).batch_at(0)
+    for kw in ({"mesh": make_torch_mesh((1, 2), ("data", "model"),
+                                        device="cpu")},
+               {"score_sharding": "2d"}, {"flat_scores": True}):
+        opt = NaturalGradient(0.1)
+        params = api.init_params(torch.Generator().manual_seed(SEED), "cpu")
+        _, state, metrics = ttrain.make_ngd_train_step(api, opt, **kw)(
+            params, opt.init(params), batch)
+        assert state.step == 1 and np.isfinite(float(metrics["loss"]))
+    losses, report = train_main(
+        ["--arch", ARCH, "--smoke", "--device", "cpu", "--mesh-shape", "1,2",
+         "--steps", "2", "--batch", "4", "--seq", "16",
+         "--ckpt-dir", str(tmp_path)])
+    assert report["completed"] and len(losses) == 2
     with pytest.raises(ValueError, match="unknown curvature mode"):
         build_trainer(tconfigs.get_smoke(ARCH), optimizer_name="ngd", lr=0.1,
                       damping=1e-3, batch=4, seq=16, total_steps=2,
