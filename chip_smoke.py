@@ -79,6 +79,22 @@ Phases, each printing its own lines:
    plain ``chol_solve`` (1e-3); the rank-16 update and downdate with their
    columns sharded, composed and as a ring of rotation sweeps, against the
    replicated ``cholupdate`` (CHOLUP_TOL);
+10d. the fleet — two worker processes on the card (``launch_fleet``,
+   ``python -m repro_torch.fleet``) behind a ``Dispatcher``, the window
+   shipped in the init frame: (a) the trace of 4 round robin with its
+   rows gossiped, every response within 5e-3 of a fold-at-admission
+   ``SolveServer`` on the card, after ``reconcile()`` and four settling
+   probes (each worker's age refresh at the reconciled window) the
+   probe bit for bit, the checkpoint's manifest, the gossip journal
+   replayed on the card (and refreshed once) equal to every worker's
+   checkpointed S, W, L and slot bit for bit, ``serve_solve`` and
+   ``fold_cols`` counted in the workers' profile traces; (b) the same with a bf16 window (S0 and the rows
+   cross as ``|V2`` records) sharded 1d on async workers, ``gram`` and
+   ``cholesky`` counted at its (sharded) refreshes; (c) ``by_adapter`` without gossip, each
+   worker bit for bit an eager server fed its partition, then SIGTERM to
+   one worker with requests in flight, every request answered; (d)
+   ``serve_main --smoke --fleet 2 --route by_adapter`` on the card and
+   the CPU (first nine losses 1e-3, equal verdicts) and ``--async``;
 11. streaming curvature — ``CurvatureCache`` at 512 × 100_000 over 6
    solves of a drifting window against the card's plain ``chol_solve``
    and the same trace on the CPU; ``StreamingGram`` over the 4 blocks;
@@ -139,11 +155,11 @@ Phases, each printing its own lines:
    profile showing the wgmma kernel; layer 0's attention at that shape
    against the plain version;
 14a. LM serving, MoE and Mamba2 — (a) mamba2-1.3b at published widths,
-   8 of 48 layers, bf16 weights, an fp32 window, and
+   4 of 48 layers, bf16 weights, an fp32 window, and
    (b) qwen3-moe-30b-a3b, 1 of 48 layers (128 experts top-8), a bf16
    window (m = 1,245,976,576), bursts of 1: phase 13's trace and gates
    each, ``fold_cols`` launched, flash attention once an attention layer
-   a prefill (0 on mamba2); (c) mamba2-1.3b at all 48 layers, fp32:
+   a prefill (0 on mamba2); (c) mamba2-1.3b at 16 of 48 layers, fp32:
    prefill of 1,024 tokens at batch 2 and 16 teacher-forced decode steps
    against the teacher-forced forward (2e-3), then the bf16 model's
    prefill of 4,096 tokens and its decode timed; (d) ``serve_main --arch
@@ -199,10 +215,12 @@ import json
 import os
 import random
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 # The LM phase holds a 19 GB window, its fold's 19 GB copy and the score
@@ -229,6 +247,7 @@ from repro_torch.curvature import (CurvatureCache,  # noqa: E402
 from repro_torch.dist import (AsyncSolveServer, DistSpec,  # noqa: E402
                               init_sharded_serve_state,
                               sharded_chol_downdate, sharded_chol_update)
+from repro_torch.fleet import launch_fleet  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels.gram import ROUTES as GRAM_ROUTES  # noqa: E402
 from repro_torch.kernels.gram import tensor_core_route  # noqa: E402
@@ -260,7 +279,8 @@ from repro_torch.serve import (FoldJournal, OnlineAdaptation,  # noqa: E402
 from repro_torch.serve import main as serve_cli  # noqa: E402
 from repro_torch.serve.main import serve_main, serve_trace  # noqa: E402
 from repro_torch.serve.state import (serve_mode,  # noqa: E402
-                                     serve_state_from_tree, serve_state_tree)
+                                     serve_state_from_tree, serve_state_tree,
+                                     whole_window)
 from repro_torch.core.solvers import cholesky as plain_cholesky  # noqa: E402
 from repro_torch.core.solvers import real_scalar  # noqa: E402
 from repro_torch.tenants import (TenantManager,  # noqa: E402
@@ -449,24 +469,27 @@ COMPRESS_GATE, COMPRESS_CPU_GATE, MESH_CLI_STEPS = 2e-2, 1e-6, 3
 # half) at published widths, cut in depth so that the serving window of
 # n = 8 score rows and a fold's copy of it fit the card; bf16 weights.
 # (arch, layers, window dtype, burst):
-# - mamba2-1.3b, 8 of 48 layers, an fp32 window (16 layers, m =
+# - mamba2-1.3b, 4 of 48 layers, an fp32 window (16 layers, m =
 #   516,805,632, a 16.54 GB window, until the sharded phases needed the
-#   script's time; all 48: 43.0 GB, 86 with the copy);
+#   script's time, then 8 until the fleet phase did; all 48: 43.0 GB, 86
+#   with the copy);
 # - qwen3-moe-30b-a3b, 1 of 48 layers (128 experts of 2048 × 768): m =
 #   1,245,976,576, a bf16 window (storage only) of 19.94 GB. Bursts of 1:
 #   each pending request holds its fp32 v (4.98 GB) and its rows (4.98 GB),
 #   and a microbatch's V, Sᵀw and x are 4.98 GB a request each, so a
 #   burst of 3 beside the window and its copy would not fit.
 # Phase 13's trace and gates otherwise (LM_* above).
-ZOO_SERVED = (("mamba2-1.3b", 8, None, LM_BURST),
+ZOO_SERVED = (("mamba2-1.3b", 4, None, LM_BURST),
               ("qwen3-moe-30b-a3b", 1, "bfloat16", 1))
-# mamba2-1.3b at all 48 layers, fp32 (5.38 GB): prefill of a 1,024-token
+# mamba2-1.3b at MAMBA_LAYERS of 48 layers (all 48 until the fleet phase
+# needed the script's time), fp32: prefill of a 1,024-token
 # prompt at batch 2, then 16 teacher-forced decode steps against the
 # teacher-forced forward's logits, |a − b| ≤ 2e-3 + 2e-3·|b|
 # (tests/test_archs.py test_decode_matches_forward at full size); then
 # the bf16 model's prefill of a 4,096-token prompt and its decode, timed
 # and printed.
 MAMBA_ARCH, MAMBA_B, MAMBA_PROMPT, MAMBA_STEPS = "mamba2-1.3b", 2, 1024, 16
+MAMBA_LAYERS = 16
 MAMBA_TIMED_PROMPT, MAMBA_TIMED_TOKENS = 4096, 32
 DECODE_GATE = 2e-3
 # serve_main --smoke per family, on the card and on the CPU
@@ -2108,6 +2131,387 @@ def sharded_algorithm1_path() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 10d. the fleet: two worker processes on the card behind a Dispatcher
+# ---------------------------------------------------------------------------
+
+# Fleet workers count their launches in their own processes, out of reach of
+# this process's counters: each worker's torch.profiler trace (the init
+# frame's ``profile_dir``) is read instead, one kernel name a wrapper. On
+# each run's path each named kernel is launched by exactly one wrapper,
+# once a call. (a), replicated eager workers: the substitution only inside
+# ``serve_solve`` (the mixed-λ solves run ``solve_batch``, plain PyTorch),
+# the fixed-order partial sum only by ``fold_cols`` (``serve_solve``'s
+# substitution reads the partials itself). (b), workers whose window is
+# sharded 1d over their own mesh: the age refreshes are the sharded
+# refresh, one Gram kernel a ``gram`` (its route's) and one
+# ``cholesky_kernel`` a factorization (the replicated refresh and the
+# seeding factorization are plain PyTorch, as the reference's), and the
+# solves run ``trisolve`` and a ``serve_apply`` a piece apart.
+FLEET_KERNELS = {
+    "a": {"serve_solve": ("trisolve_kernel",),
+          "fold_cols": ("reduce_partials_kernel",)},
+    "b": {"gram": ("gram_tc_kernel", "gram_partial_kernel"),
+          "cholesky": ("cholesky_kernel",), "trisolve": ("trisolve_kernel",),
+          "serve_apply": ("serve_apply_kernel",)}}
+FLEET_WORKERS = 2
+# probes after reconcile: the workers' age refreshes are local decisions
+# (refreshes are not gossiped), so they refreshed at different windows; a
+# probe is a microbatch, and after REFRESH_EVERY of them each has refreshed
+# at the one reconciled window
+FLEET_SETTLE = 4
+FLEET_REFRESH = 4                  # phase 4's refresh_every
+
+
+def fleet_meta(**extra) -> dict:
+    """The init frame's meta of phase 4's server: microbatches of PER_MB,
+    a refresh every 4, drift monitoring off (the fused ``serve_solve``)."""
+    return {"mode": "inline", "damping": LAM0, "max_requests": PER_MB,
+            "refresh_every": FLEET_REFRESH, "drift_frac": 0.25,
+            "monitor_drift": False, **extra}
+
+
+def fold_at_admission(S, vs, rows, lams, window_dtype=None,
+                      device="cuda") -> dict:
+    """Phase 4's server on ``device`` fed the trace with each request's
+    rows folded before its solve: the order the fleet's gossip gives."""
+    srv = SolveServer(init_serve_state(S.to(device), LAM0, device=device,
+                                       window_dtype=window_dtype),
+                      batcher=TokenBudgetBatcher(max_requests=PER_MB),
+                      adaptation=OnlineAdaptation(
+                          refresh_every=FLEET_REFRESH),
+                      monitor_drift=False, fused=True)
+    out, sub = {}, {}
+    for i in range(len(vs)):
+        for r in srv.flush():
+            out[sub[r.uid]] = r.x.float().cpu()
+        srv.apply_fold(rows[i].to(device))
+        sub[srv.submit(vs[i].to(device), damping=lams[i])] = i
+    for r in srv.flush():
+        out[sub[r.uid]] = r.x.float().cpu()
+    return out
+
+
+def trace_kernels(profile_dir: str, names: dict) -> tuple:
+    """Launches by wrapper (``names``: wrapper → kernel names) in every
+    worker's trace, and per worker (device busy ms in kernels, in copies,
+    the trace's span ms)."""
+    counts = dict.fromkeys(KERNELS, 0)
+    files = sorted(Path(profile_dir).glob("worker*/trace_*.json"))
+    if len(files) != FLEET_WORKERS:
+        raise AssertionError(f"fleet: {len(files)} worker profile traces in "
+                             f"{profile_dir}, expected {FLEET_WORKERS}")
+    busy = []
+    for f in files:
+        events = json.loads(f.read_text())["traceEvents"]
+        kern = copy = 0.0
+        stamps = [ev["ts"] for ev in events if "ts" in ev and "dur" in ev]
+        for ev in events:
+            if ev.get("cat") == "gpu_memcpy":
+                copy += ev.get("dur", 0.0)
+            if ev.get("cat") != "kernel":
+                continue
+            kern += ev.get("dur", 0.0)
+            for kname, kernels in names.items():
+                if any(k in ev.get("name", "") for k in kernels):
+                    counts[kname] += 1
+        span = max(float(ev["ts"]) + float(ev["dur"]) for ev in events
+                   if "ts" in ev and "dur" in ev) - float(min(stamps))
+        busy.append((kern / 1e3, copy / 1e3, span / 1e3))
+    return counts, busy
+
+
+def settled_probe(disp, v, label: str) -> float:
+    """Reconcile, probe, drive every worker past its age bound at the
+    reconciled window, and gate the last probe bit for bit. Returns the
+    first probe's relative spread (before the settling refreshes)."""
+    disp.reconcile(timeout=300)
+    first = list(disp.probe(v, timeout=300).values())
+    for _ in range(FLEET_SETTLE - 1):
+        disp.probe(v, timeout=300)
+    xs = list(disp.probe(v, timeout=300).values())
+    if len(xs) != FLEET_WORKERS or not all(
+            np.array_equal(xs[0], x) for x in xs[1:]):
+        raise AssertionError(f"fleet {label}: reconciled probes differ")
+    return max(float(np.linalg.norm(a - first[0])
+                     / np.linalg.norm(first[0])) for a in first[1:])
+
+
+def fleet_gossip_run(disp, trace, window_dtype=None, layout=None) -> dict:
+    """(a)/(b): phase 4's trace through ``disp``'s two CUDA workers, round
+    robin, gossip on (``fleet_specs``). Every response against the eager fold-at-admission server
+    on the card; the settled probe bit for bit; the checkpoint's manifest;
+    the gossip journal replayed on the card onto the workers' initial
+    state (``init_serve_state(S0)``, or with ``layout`` the async server's
+    sharded state over the worker's mesh and the sharded adaptation) and
+    refreshed once (each worker's last maintenance was a refresh at the
+    reconciled window) equal to every worker's checkpointed S, W, L and
+    slot bit for bit. A bf16 window crosses the wire as ``|V2`` records
+    (S0 and the rows are sent as bf16 tensors)."""
+    S, vs, rows, lams = trace
+    label = ("bf16" if window_dtype is not None else "fp32") \
+        + (f", {layout} async workers" if layout else "")
+    if window_dtype is not None:
+        S = S.to(window_dtype)
+        rows = [r.to(window_dtype) for r in rows]
+    ref = fold_at_admission(S, vs, rows, lams, window_dtype)
+    tmp = tempfile.mkdtemp(prefix="fleet_")
+    try:
+        t0 = time.perf_counter()
+        with disp:
+            got = {}
+            for b in range(0, REQUESTS, PER_MB):     # phase 4's flushes
+                sub = {disp.submit(vs[i], damping=lams[i], rows=rows[i]): i
+                       for i in range(b, b + PER_MB)}
+                got.update({sub[r.uid]: torch.from_numpy(r.x)
+                            for r in disp.flush(timeout=300)})
+            summary = disp.metrics.summary()
+            spread = settled_probe(disp, vs[0], label)
+            manifest_path = disp.checkpoint(tmp, 1, timeout=300)
+            head = disp.log.head
+        t_all = time.perf_counter() - t0
+        manifest = json.loads(Path(manifest_path).read_text())
+        if sorted(got) != list(range(REQUESTS)) or any(
+                x.shape != (M,) or not torch.isfinite(x).all()
+                for x in got.values()):
+            raise AssertionError(f"fleet {label}: responses missing or not "
+                                 f"finite (m,)")
+        worst = max(rel(got[i], ref[i]) for i in range(REQUESTS))
+        if not worst < SERVE_GATE:
+            raise AssertionError(f"fleet {label}: responses {worst:.3e} from "
+                                 f"the fold-at-admission server")
+        if (manifest["gossip_head"], sorted(manifest["workers"])) != \
+                (head, ["0", "1"]) or head != REQUESTS:
+            raise AssertionError(f"fleet {label}: manifest {manifest}")
+        journal = FoldJournal.load(Path(tmp) / manifest["gossip_journal"])
+        init = init_serve_state(S.cuda(), LAM0, window_dtype=window_dtype)
+        if layout is None:
+            start, spec = init, None
+        else:
+            spec = DistSpec(make_mesh((torch.cuda.device_count(),),
+                                      ("model",)), layout)
+            start = init_sharded_serve_state(
+                S.cuda(), LAM0, spec=spec, window_dtype=window_dtype).state
+        adaptation = OnlineAdaptation(refresh_every=FLEET_REFRESH, dist=spec)
+        replayed, _ = adaptation.maybe_refresh(
+            journal.replay(start, adaptation), force=True)
+        replayed = replayed._replace(S=whole_window(replayed.S))
+        for wid in range(FLEET_WORKERS):
+            wstate, wmeta = restore_serve_state(
+                Path(tmp) / f"worker_{wid}", 1, init)
+            same = [torch.equal(getattr(wstate, k), getattr(replayed, k))
+                    for k in ("S", "W", "L")]
+            if not all(same) or wstate.slot != replayed.slot or \
+                    wmeta["worker_id"] != wid:
+                raise AssertionError(f"fleet {label}: worker {wid}'s "
+                                     f"checkpoint differs from the replayed "
+                                     f"gossip journal (S, W, L: {same})")
+        print(f"  ({'b' if layout else 'a'}) round robin, "
+              f"gossip, {label}: p50 {summary['p50_ms']:.3f} ms  p99 "
+              f"{summary['p99_ms']:.3f} ms  {summary['rps']:.1f} req/s; "
+              f"responses {worst:.2e} from the fold-at-admission server "
+              f"(gate {SERVE_GATE:g}); {head} fold events; the first "
+              f"reconciled probe {spread:.1e} apart, after {FLEET_SETTLE} "
+              f"settling probes bit for bit; the gossip journal replayed "
+              f"on the card (+ one refresh) = each worker's checkpoint bit "
+              f"for bit ({t_all:.1f} s)", flush=True)
+        return {"summary": summary, "worst": worst}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def fleet_partition_run(disp, trace) -> dict:
+    """(c): by_adapter with gossip off, width-1 microbatches: each worker's
+    responses bit for bit an eager server's on the card fed only its
+    requests. Then one worker takes SIGTERM with a burst in flight (its
+    draining exit answers what it read), and a burst submitted after it
+    has exited is answered by the survivor alone, the survivor's keys
+    placed as before."""
+    S, vs, rows, lams = trace
+    adapters = [f"user{i % 5}" for i in range(REQUESTS)]
+    t0 = time.perf_counter()
+    with disp:
+        sub, got = {}, {}
+        for b in range(0, REQUESTS, PER_MB):
+            batch = {disp.submit(vs[i], damping=lams[i], rows=rows[i],
+                                 adapter=adapters[i]): i
+                     for i in range(b, b + PER_MB)}
+            sub.update(batch)
+            got.update({batch[r.uid]: r.x for r in disp.flush(timeout=300)})
+        part = {}
+        for uid, i in sub.items():
+            part.setdefault(disp.assignments[uid], []).append(i)
+        if len(part) != FLEET_WORKERS:
+            raise AssertionError(f"fleet (c): adapters on {sorted(part)}")
+        for wid, idxs in sorted(part.items()):
+            srv = SolveServer(init_serve_state(S.cuda(), LAM0),
+                              batcher=TokenBudgetBatcher(max_requests=1),
+                              adaptation=OnlineAdaptation(
+                                  refresh_every=FLEET_REFRESH),
+                              monitor_drift=False, fused=True)
+            ssub = {srv.submit(vs[i].cuda(), damping=lams[i],
+                               rows=rows[i].cuda()): i for i in idxs}
+            for r in srv.flush():
+                if not np.array_equal(got[ssub[r.uid]], r.x.cpu().numpy()):
+                    raise AssertionError(f"fleet (c): worker {wid}'s "
+                                         f"response to request {ssub[r.uid]} "
+                                         f"differs from its partition's")
+        place = {a: disp.assignments[u] for u, a in
+                 ((u, adapters[i]) for u, i in sub.items())}
+        victim = disp.workers[1]
+        survivor = 1 - victim.worker_id
+        burst = 16
+        before = {disp.submit(vs[i], adapter=adapters[i]): i
+                  for i in range(burst)}
+        victim.proc.send_signal(signal.SIGTERM)
+        victim.proc.wait(timeout=120)
+        after = {disp.submit(vs[i], adapter=adapters[i]): i
+                 for i in range(burst)}
+        results = disp.flush(timeout=300)
+        answered = {r.uid for r in results}
+        if answered != set(before) | set(after) or any(
+                not np.isfinite(r.x).all() for r in results):
+            raise AssertionError("fleet (c): a request went unanswered")
+        if any(disp.assignments[u] != survivor for u in after):
+            raise AssertionError("fleet (c): a request after the SIGTERM was "
+                                 "not answered by the survivor")
+        moved = [a for a, w in place.items()
+                 if w == survivor and any(
+                     disp.assignments[u] != survivor
+                     for u, i in after.items() if adapters[i] == a)]
+        if moved or victim.alive or victim.proc.returncode != 0:
+            raise AssertionError(f"fleet (c): survivor keys moved {moved}, "
+                                 f"victim exit {victim.proc.returncode}")
+        drained = sum(disp.assignments[u] == victim.worker_id
+                      for u in before)
+        summary = disp.metrics.summary()
+    print(f"  (c) by_adapter, gossip off: {len(part[0])} / {len(part[1])} "
+          f"requests, each worker bit for bit its partition's eager server; "
+          f"SIGTERM to worker {victim.worker_id} with {burst} requests in "
+          f"flight: it answered {drained} draining (exit 0), the survivor "
+          f"the rest and all {burst} sent after it exited, placement of the "
+          f"survivor's keys unchanged; p50 {summary['p50_ms']:.3f} ms "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    return {"summary": summary}
+
+
+def fleet_cli_path() -> None:
+    """(d): ``serve_main --smoke --fleet 2 --route by_adapter`` with CUDA
+    workers and with ``--device cpu``: the first nine losses within
+    LM_LOSS_GATE, equal fleet verdicts, the reconciled probe's agreement
+    0; then ``--fleet 2 --async --smoke`` on the card against the first.
+    (Run at once, as three processes, they took longer than in turn.)"""
+    tmp = tempfile.mkdtemp(prefix="fleet_cli_")
+    try:
+        runs = {}
+        for key, extra in (("cuda", ()), ("cpu", ("--device", "cpu")),
+                           ("async", ("--async",))):
+            _, losses, _, out, wall, _ = run_cli(
+                ["--arch", LM_ARCH, "--smoke", "--fleet", "2", "--route",
+                 "by_adapter", "--ckpt-dir", os.path.join(tmp, key), *extra])
+            runs[key] = {
+                "losses": losses, "wall": wall,
+                "agree": float(cli_line(out, "reconciled probe agreement")
+                               .split()[-1]),
+                "verdict": cli_line(out, "fleet health: ").split()[2]}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gated = 3 * 3
+    errs = {key: [abs(a - b) / abs(b) for a, b in
+                  zip(runs[key]["losses"], runs[ref]["losses"])]
+            for key, ref in (("cuda", "cpu"), ("async", "cuda"))}
+    print(f"  (d) serve_main --smoke --fleet 2 --route by_adapter: card "
+          f"{runs['cuda']['wall']:.1f} s, CPU {runs['cpu']['wall']:.1f} s, "
+          f"--async on the card {runs['async']['wall']:.1f} s; card losses "
+          + " ".join(f"{v:.6g}" for v in runs["cuda"]["losses"])
+          + "; vs the CPU " + " ".join(f"{v:.1e}" for v in errs["cuda"])
+          + "; --async vs eager " + " ".join(
+              f"{v:.1e}" for v in errs["async"])
+          + f" (gate {LM_LOSS_GATE:g} on the first {gated}); verdicts "
+          + " / ".join(runs[k]["verdict"] for k in runs)
+          + "; probe agreement " + " / ".join(
+              f"{runs[k]['agree']:.2e}" for k in runs), flush=True)
+    for key in ("cuda", "async"):
+        if len(runs[key]["losses"]) != 12 or \
+                not max(errs[key][:gated]) < LM_LOSS_GATE:
+            raise AssertionError(f"fleet CLI {key}: losses "
+                                 f"{max(errs[key][:gated]):.3e} apart")
+    if len({r["verdict"] for r in runs.values()}) != 1 or \
+            any(r["agree"] != 0.0 for r in runs.values()):
+        raise AssertionError("fleet CLI: verdicts differ or the "
+                             "reconciled probes disagree")
+
+
+def fleet_specs(trace, profiles: dict) -> dict:
+    """The launch of each fleet: (init meta, init arrays, route, gossip).
+    (a) fp32 eager workers, (b) bf16 async workers sharded 1d, both
+    profiled into ``profiles``; (c) width-1 eager workers."""
+    S = trace[0]
+    return {
+        "a": (fleet_meta(profile_dir=profiles["a"]), {"S0": S},
+              "round_robin", True),
+        "b": (fleet_meta(profile_dir=profiles["b"], layout="1d",
+                         window_dtype="bfloat16", **{"async": True}),
+              {"S0": S.to(torch.bfloat16)}, "round_robin", True),
+        "c": (fleet_meta(max_requests=1), {"S0": S}, "by_adapter", False)}
+
+
+def fleet_path(trace) -> dict:
+    """The fleet phase: (a) an fp32 window on replicated eager workers and
+    (b) a bf16 window sharded 1d on async workers, both with gossip and
+    profiled; (c) by_adapter without gossip; (d) the CLI. Returns the
+    launches in the workers of (a) and (b), counted from their profile
+    traces: ``serve_solve`` and ``fold_cols`` in (a); ``gram`` and
+    ``cholesky`` at (b)'s age refreshes, ``trisolve`` and ``serve_apply``
+    on its solves."""
+    counts, out, fleets = dict.fromkeys(KERNELS, 0), {}, {}
+    profiles = {run: tempfile.mkdtemp(prefix="fleet_profile_")
+                for run in FLEET_KERNELS}
+    try:
+        # the three fleets start at once: a worker's start (a Python,
+        # ``import torch``, a CUDA context) dwarfs its trace; each fleet
+        # then serves alone, the others' workers waiting on their sockets
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(3) as pool:
+            launched = {run: pool.submit(
+                launch_fleet, FLEET_WORKERS, init_meta=meta,
+                init_arrays=arrays, route=route, gossip=gossip)
+                for run, (meta, arrays, route, gossip)
+                in fleet_specs(trace, profiles).items()}
+        for run, future in launched.items():
+            if future.exception() is None:
+                fleets[run] = future.result()
+        for future in launched.values():
+            if future.exception() is not None:
+                raise future.exception()
+        print(f"  three fleets of {FLEET_WORKERS} workers up at once in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        for run, kw in (("a", {}), ("b", {"window_dtype": torch.bfloat16,
+                                          "layout": "1d"})):
+            out[run] = fleet_gossip_run(fleets[run], trace, **kw)
+            got, busy = trace_kernels(profiles[run], FLEET_KERNELS[run])
+            print(f"  ({run}) launches in the workers (their profile "
+                  f"traces): " + ", ".join(
+                      f"{k}={v}" for k, v in got.items() if v)
+                  + "; device busy a worker (kernels + copies of its "
+                  "traced span, init to exit): " + ", ".join(
+                      f"{k:.1f} + {c:.1f} of {w:.0f} ms"
+                      for k, c, w in busy), flush=True)
+            for kname in FLEET_KERNELS[run]:
+                require_launches(f"fleet ({run}), in the workers", got,
+                                 kname)
+            add_counts(counts, got)
+        fleet_partition_run(fleets["c"], trace)
+    finally:
+        for disp in fleets.values():
+            disp.shutdown(drain=False, timeout=60)   # no-op once drained
+        for prof in profiles.values():
+            shutil.rmtree(prof, ignore_errors=True)
+    fleet_cli_path()
+    return {"counts": counts, "a": out["a"]["summary"],
+            "b": out["b"]["summary"]}
+
+
+# ---------------------------------------------------------------------------
 # 11. the streaming curvature cache
 # ---------------------------------------------------------------------------
 
@@ -2627,7 +3031,8 @@ def run_cli(argv, on_build=None) -> tuple:
     """``serve_main(argv)`` with its output shown and kept; returns
     (server, losses, the handles it built, its output, wall s, the wall s
     of each checkpoint it wrote). ``on_build(server, handles)`` runs
-    before the first request."""
+    before the first request. A ``--fleet`` run returns its dispatcher as
+    the server and builds no handles here (None)."""
     built, saves = [], []
     build, save = serve_cli.build_server, ckpt_io.save
 
@@ -2654,8 +3059,8 @@ def run_cli(argv, on_build=None) -> tuple:
         serve_cli.build_server, ckpt_io.save = build, save
     if torch.cuda.is_available():
         torch.cuda.synchronize()
-    return server, losses, built[0], tee.buf.getvalue(), \
-        time.perf_counter() - t0, saves
+    return server, losses, built[0] if built else None, \
+        tee.buf.getvalue(), time.perf_counter() - t0, saves
 
 
 def cli_line(out: str, head: str) -> str:
@@ -3258,13 +3663,14 @@ def n_params(params) -> int:
 
 
 def mamba_decode_path(device="cuda") -> dict:
-    """mamba2-1.3b at all 48 layers: the fp32 model's prefill of a
+    """mamba2-1.3b at MAMBA_LAYERS layers: the fp32 model's prefill of a
     MAMBA_PROMPT-token prompt (batch MAMBA_B), then MAMBA_STEPS
     teacher-forced decode steps against the teacher-forced forward
     (``teacher_forced_decode``); then the bf16 model's prefill of
     MAMBA_TIMED_PROMPT tokens and MAMBA_TIMED_TOKENS greedy decode steps,
     timed (``timed_decode``)."""
-    cfg = configs.get_config(MAMBA_ARCH).scaled(dtype="float32")
+    cfg = configs.get_config(MAMBA_ARCH).scaled(n_layers=MAMBA_LAYERS,
+                                                dtype="float32")
     api = get_api(cfg)
     gen = torch.Generator().manual_seed(SEED + 17)
     t0 = time.perf_counter()
@@ -3279,7 +3685,7 @@ def mamba_decode_path(device="cuda") -> dict:
     gc.collect()
     if device == "cuda":
         torch.cuda.empty_cache()
-    cfg16 = configs.get_config(MAMBA_ARCH)
+    cfg16 = configs.get_config(MAMBA_ARCH).scaled(n_layers=MAMBA_LAYERS)
     params = get_api(cfg16).init_params(
         torch.Generator().manual_seed(SEED + 17), device)
     prompt = torch.randint(3, cfg.vocab, (1, MAMBA_TIMED_PROMPT),
@@ -4514,6 +4920,21 @@ def main() -> int:
     paths["sharded Algorithm 1"] = sharded_algorithm1_path()
     print(f"  the sharded phases {time.perf_counter() - t0:.1f} s",
           flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase(f"the fleet: {FLEET_WORKERS} worker processes on the card behind "
+          f"a Dispatcher at {N}x{M}, λ₀ = {LAM0:g}: (a) the dense trace, "
+          f"round robin, gossip, fp32, the workers profiled; (b) the same, "
+          f"bf16 window sharded 1d on async workers, profiled; (c) by_adapter without gossip, then SIGTERM to one "
+          f"worker; (d) serve_main --smoke --fleet 2 --route by_adapter on "
+          f"the card and the CPU, and --async")
+    fleet = fleet_path(trace)
+    paths["fleet, in the workers"] = fleet["counts"]
+    eager = dense["summary"]
+    print(f"  phase 4's eager server in this run: p50 {eager['p50_ms']:.3f} "
+          f"ms  p99 {eager['p99_ms']:.3f} ms  {eager['rps']:.1f} req/s; the "
+          f"fleet phase {time.perf_counter() - t0:.1f} s", flush=True)
     phase(f"streaming curvature, {STREAM_N}x{M}, {STREAM_STEPS} solves")
     streaming_path()
 
@@ -4587,7 +5008,8 @@ def main() -> int:
     for arch, counts in zoo_serving_path().items():
         paths[f"LM serving, {arch}"] = counts
     t0 = time.perf_counter()
-    phase(f"LM serving, MoE and Mamba2: {MAMBA_ARCH}, all 48 layers, "
+    phase(f"LM serving, MoE and Mamba2: {MAMBA_ARCH}, {MAMBA_LAYERS} of 48 "
+          f"layers, "
           f"prefill of {MAMBA_PROMPT} tokens at batch {MAMBA_B} + "
           f"{MAMBA_STEPS} teacher-forced decode steps (fp32), then bf16 "
           f"prefill of {MAMBA_TIMED_PROMPT} tokens and decode timed")
@@ -4642,6 +5064,7 @@ def main() -> int:
           f"{time.perf_counter() - t_a6b:.1f} s", flush=True)
     for label in ("tenant serving", *(k for k in paths if
                                       k.startswith("sharded ")),
+                  "fleet, in the workers",
                   "LM serving", "LM serving CLI",
                   "LM serving CLI, tenants", "LM serving CLI, sharded",
                   "LM NGD trainer",

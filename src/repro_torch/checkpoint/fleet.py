@@ -1,24 +1,65 @@
-"""Single-file npz bundles (port of ``repro/checkpoint/fleet.py``'s
-``save_npz_bundle`` / ``load_npz_bundle``): named numpy arrays plus a JSON
-meta blob under ``__meta__``, written atomically (.tmp → fsync →
-rename), so readers never see a torn file. The flight recorder's incident
-bundles and the tenant manager's spills (``save_tenant_spill``) use it; a
-bundle written by either package loads in the other. The fleet manifests
-that the reference keeps in this module come with the fleet
-(``repro_torch.roadmap``).
+"""Fleet checkpoint manifests and single-file npz bundles (port of
+``repro/checkpoint/fleet.py``).
+
+A fleet checkpoint is per-worker ``ServeState`` checkpoints (each written
+by its worker through ``repro_torch.checkpoint`` — atomic, keep-last-k)
+plus one small JSON manifest the dispatcher writes after collecting every
+worker's ack: routing mode, gossip head, and where each worker's state
+and fold journal landed (``save_fleet_manifest``, ``load_fleet_manifest``,
+``latest_fleet_step``; ``fleet_<step>.json``, the reference's name).
+
+The npz bundle is named numpy arrays plus a JSON meta blob under
+``__meta__``. The flight recorder's incident bundles and the tenant
+manager's spills (``save_tenant_spill``) use it; a bundle or a manifest
+written by either package loads in the other.
+
+Every file is written atomically (.tmp → fsync → rename), so readers
+never see a torn file.
 """
 from __future__ import annotations
 
 import json
 import os
 import pathlib
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-__all__ = ["save_npz_bundle", "load_npz_bundle", "save_tenant_spill",
-           "load_tenant_spill"]
+__all__ = ["save_fleet_manifest", "load_fleet_manifest",
+           "latest_fleet_step", "save_npz_bundle", "load_npz_bundle",
+           "save_tenant_spill", "load_tenant_spill"]
+
+_NAME = "fleet_{step:09d}.json"
+
+
+def save_fleet_manifest(ckpt_dir, step: int, manifest: dict
+                        ) -> pathlib.Path:
+    """Write ``<ckpt_dir>/fleet_<step>.json`` atomically."""
+    ckpt_dir = pathlib.Path(ckpt_dir)
+    ckpt_dir.mkdir(parents=True, exist_ok=True)
+    final = ckpt_dir / _NAME.format(step=int(step))
+    tmp = final.with_suffix(".json.tmp")
+    with open(tmp, "w") as f:
+        json.dump(manifest, f, indent=1)
+        f.flush()
+        os.fsync(f.fileno())
+    tmp.rename(final)
+    return final
+
+
+def load_fleet_manifest(ckpt_dir, step: int) -> dict:
+    path = pathlib.Path(ckpt_dir) / _NAME.format(step=int(step))
+    return json.loads(path.read_text())
+
+
+def latest_fleet_step(ckpt_dir) -> Optional[int]:
+    """The newest manifest's step in ``ckpt_dir`` (None: none there)."""
+    d = pathlib.Path(ckpt_dir)
+    if not d.exists():
+        return None
+    steps = sorted(int(p.stem.split("_")[1]) for p in d.glob("fleet_*.json"))
+    return steps[-1] if steps else None
 
 
 def save_npz_bundle(path, arrays: dict, meta: dict) -> pathlib.Path:

@@ -31,6 +31,14 @@ from repro_torch.core.solvers import (
     residual,
     svd_solve,
 )
+# after the solvers: core.distributed imports kernels.ops, which imports
+# core.operator and core.solvers
+from repro_torch.core.distributed import (  # noqa: E402
+    make_sharded_solver,
+    sharded_blocked_chol_solve,
+    sharded_chol_solve,
+    sharded_chol_solve_2d,
+)
 
 __all__ = [
     "SOLVERS", "BlockedScores", "CholFactorization", "ConstantDamping",
@@ -38,5 +46,7 @@ __all__ = [
     "ScoreOperator", "SolverStats", "as_blocked_vector", "auto_drift_tol",
     "block_norm", "center_scores", "cg_solve", "chol_factorize",
     "chol_solve", "direct_solve", "eigh_solve", "get_solver", "gram",
-    "gram_chunked", "is_blocked", "minsr_solve", "residual", "svd_solve",
+    "gram_chunked", "is_blocked", "make_sharded_solver", "minsr_solve",
+    "residual", "sharded_blocked_chol_solve", "sharded_chol_solve",
+    "sharded_chol_solve_2d", "svd_solve",
 ]

@@ -41,8 +41,9 @@ from repro_torch.core.operator import acc_dtype
 from repro_torch.core.solvers import cholesky
 from repro_torch.curvature.update import (chol_downdate, chol_update,
                                           replacement_core, signed_split)
-from repro_torch.dist.state import (DistSpec, ShardedWindow, _check_layout,
-                                    is_sharded, shard_window, split_columns)
+from repro_torch.dist.state import (LAYOUTS, DistSpec,  # noqa: F401
+                                    ShardedWindow, _check_layout, is_sharded,
+                                    shard_window, split_columns)
 from repro_torch.kernels import ops
 from repro_torch.launch.mesh import Mesh, all_gather, ppermute, psum
 

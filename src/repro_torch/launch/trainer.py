@@ -14,7 +14,9 @@ cpu``, where the kernels' plain versions run.
 ``build_server`` is the reference's: the eager replicated server, or
 with ``async_`` the concurrent ``AsyncSolveServer``, its window sharded
 over a mesh with ``layout``; with its observability hooks, audit and
-tenant manager. ``build_trainer(mesh=)`` and ``train_main --mesh-shape``
+tenant manager. ``build_fleet`` is its multi-process twin: the same front,
+the window shipped to ``repro_torch.fleet`` worker processes behind a
+``Dispatcher``. ``build_trainer(mesh=)`` and ``train_main --mesh-shape``
 train over a mesh driven from this one process (``launch.train``): a
 mesh of one position is the one-device path.
 """
@@ -38,7 +40,8 @@ from repro_torch.models.api import get_api
 from repro_torch.optim import AdamW, NaturalGradient, warmup_cosine
 from repro_torch.optim.scores import flatten_like, per_sample_scores
 
-__all__ = ["ServeHandles", "build_server", "build_trainer", "train_main"]
+__all__ = ["train_main", "build_trainer", "build_server", "build_fleet",
+           "ServeHandles"]
 
 
 def _place_params(params, dev: torch.device):
@@ -331,6 +334,115 @@ def build_server(cfg, *, window: int, seq: int, damping: float = 1e-3,
         from repro_torch.dist import AsyncSolveServer
         return AsyncSolveServer(state, **kw), handles
     return SolveServer(state, **kw), handles
+
+
+def fleet_init_frame(cfg, *, window: int, seq: int, damping: float = 1e-3,
+                     max_tokens: int = 4096, max_requests: int = 8,
+                     refresh_every: int = 64, drift_tol=None,
+                     drift_frac=0.25, jitter: float = 0.0, score_chunk=None,
+                     policy: str = "cached", async_workers: bool = False,
+                     worker_layout=None, window_dtype=None, tenant_rank=None,
+                     tenant_budget_mb=None, seed: int = 0,
+                     trace: bool = False, audit_every: int = 0,
+                     profile_dir=None, record_dir=None, params=None,
+                     device=None):
+    """The front and the init frame of ``build_fleet``: returns
+    ``(handles, meta, arrays)`` — the serving front (``ServeHandles``, on
+    ``device``) and the inline init frame every worker receives, the
+    seeded window shipped as ``S0`` (blocked: ``S0.i``) with the
+    reference's init meta. A window on the card crosses to the host once,
+    in ``put_blocks``."""
+    from repro_torch.core.operator import is_blocked
+    from repro_torch.fleet.wire import put_blocks
+
+    handles, S0 = _build_serve_front(cfg, window=window, seq=seq,
+                                     score_chunk=score_chunk, seed=seed,
+                                     params=params, device=device)
+    if window_dtype is not None and not isinstance(window_dtype, str):
+        window_dtype = str(window_dtype).removeprefix("torch.")
+    meta = {"mode": "inline", "damping": float(damping),
+            "jitter": float(jitter), "policy": policy,
+            "max_tokens": int(max_tokens), "max_requests": int(max_requests),
+            "refresh_every": int(refresh_every), "drift_tol": drift_tol,
+            "drift_frac": drift_frac, "async": bool(async_workers),
+            "layout": worker_layout, "window_dtype": window_dtype,
+            "tenant_rank": None if tenant_rank is None else int(tenant_rank),
+            "tenant_budget_mb": tenant_budget_mb,
+            "obs": True, "trace": bool(trace),
+            "audit_every": int(audit_every),
+            "profile_dir": None if profile_dir is None else str(profile_dir),
+            "record_dir": None if record_dir is None else str(record_dir)}
+    arrays = {}
+    put_blocks(arrays, meta, "S0",
+               tuple(S0.blocks) if is_blocked(S0) else S0)
+    return handles, meta, arrays
+
+
+def build_fleet(cfg, *, mesh=None, n_workers: int = 2,
+                route: str = "round_robin", reconcile: bool = True,
+                window: int, seq: int, damping: float = 1e-3,
+                max_tokens: int = 4096, max_requests: int = 8,
+                refresh_every: int = 64, drift_tol=None, drift_frac=0.25,
+                jitter: float = 0.0, score_chunk=None, policy: str = "cached",
+                async_workers: bool = False, worker_layout=None,
+                window_dtype=None, tenant_rank=None, tenant_budget_mb=None,
+                seed: int = 0, trace: bool = False, registry=None,
+                audit_every: int = 0, profile_dir=None, record_dir=None,
+                device=None):
+    """Config → model → seeded window → N-process serving fleet.
+
+    The fleet twin of ``build_server``: the model (score-grad pass,
+    decode, live params) stays on this side as the traffic source, while
+    the resident curvature window is shipped — as bytes, over the init
+    frame (``fleet_init_frame``) — to ``n_workers`` local worker processes
+    that each factorize the *identical* window (the precondition for
+    gossip convergence). Returns ``(dispatcher, handles)``; drive it like
+    a server (``submit``/``flush``), plus ``reconcile()``/``probe()``/
+    ``checkpoint()``.
+
+    ``route``: "round_robin" | "least_loaded" | "by_adapter" (pass
+    ``adapter=`` at submit for sticky routing). ``reconcile=True`` gossips
+    every request's fold columns fleet-wide through the dispatcher's
+    ``GossipLog`` so all windows converge; ``False`` partitions folds —
+    each worker's window sees only its own requests' rows.
+    ``async_workers``/``worker_layout`` select the inner server flavour
+    each worker wraps (eager replicated by default; async; async + window
+    sharded over the worker's own devices).
+
+    ``tenant_rank``/``tenant_budget_mb``: give every worker a
+    ``TenantManager`` so ``submit(..., tenant=...)`` rides the
+    consistent-hash ``by_adapter`` ring as tenant placement.
+
+    ``trace=True`` turns on per-request span tracing in every worker —
+    spans ride result frames back and land in ``dispatcher.tracer``.
+    ``registry``: dispatcher-side ``repro_torch.obs.MetricsRegistry``
+    (routing latency under the ``fleet.*`` prefix); worker registries are
+    always on and merge via ``dispatcher.fleet_metrics()``.
+    ``audit_every``: each worker's factor audit cadence (0: off).
+    ``profile_dir``: each worker captures a ``torch.profiler`` trace into
+    ``<dir>/worker<i>/``. ``record_dir``: each worker runs a flight
+    recorder rooted at ``<dir>/worker<i>/``.
+
+    ``device``: the front's device and the workers' (default: CUDA;
+    "cpu" runs the plain versions everywhere). ``mesh`` is the
+    reference's argument, taken and unused: the port's front holds its
+    model on one device, and each worker lays its own mesh.
+    """
+    from repro_torch.fleet import launch_fleet
+
+    handles, meta, arrays = fleet_init_frame(
+        cfg, window=window, seq=seq, damping=damping, max_tokens=max_tokens,
+        max_requests=max_requests, refresh_every=refresh_every,
+        drift_tol=drift_tol, drift_frac=drift_frac, jitter=jitter,
+        score_chunk=score_chunk, policy=policy, async_workers=async_workers,
+        worker_layout=worker_layout, window_dtype=window_dtype,
+        tenant_rank=tenant_rank, tenant_budget_mb=tenant_budget_mb,
+        seed=seed, trace=trace, audit_every=audit_every,
+        profile_dir=profile_dir, record_dir=record_dir, device=device)
+    dispatcher = launch_fleet(n_workers, init_meta=meta, init_arrays=arrays,
+                              route=route, gossip=reconcile,
+                              registry=registry, device=device)
+    return dispatcher, handles
 
 
 def train_main(argv=None):

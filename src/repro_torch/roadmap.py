@@ -7,12 +7,11 @@ from __future__ import annotations
 __all__ = ["QUEUES", "queue"]
 
 QUEUES = {
-    "fleet": ("A8", "the fleet"),
     "launch": ("A9", "launch tooling"),
 }
 
 
 def queue(key: str) -> str:
-    """'ROADMAP A8 (the fleet)' for ``key`` = 'fleet'."""
+    """'ROADMAP A9 (launch tooling)' for ``key`` = 'launch'."""
     label, what = QUEUES[key]
     return f"ROADMAP {label} ({what})"

@@ -40,8 +40,18 @@ built, so the trace holds the model build and the window's
 factorization) and ``--record-dir`` (the flight recorder). ``--smoke``
 (the default) serves the architecture's reduced config; ``--full`` its
 published widths, ``--n-layers`` cuts the depth.
-The fleet comes with a later slice (``repro_torch.roadmap``) and raises
-``NotImplementedError`` when asked for.
+
+``--fleet N`` serves through N worker processes (``repro_torch.fleet``)
+behind a ``Dispatcher`` (``_serve_fleet``): the model stays here as the
+traffic source, the window is shipped to the workers, ``--route`` picks
+the routing policy and ``--no-reconcile`` stops the gossip of folds (they
+then partition by routed worker). ``--async`` and ``--mesh 1d|2d`` select
+each worker's inner server; ``--device`` is the front's and the workers'.
+It checkpoints the fleet every ``--ckpt-every`` rounds, ends with the
+reconciled probe's agreement line and the fleet's health and per-worker
+lines, and the observability flags serve the fleet-merged view. An
+inline init frame is capped at ``MAX_FRAME`` (2 GiB), so a fleet serves
+an LM window at ``--smoke`` widths, not at published ones.
 """
 from __future__ import annotations
 
@@ -59,11 +69,11 @@ from repro_torch.checkpoint import checkpoint as ckpt
 from repro_torch.core.damping import LevenbergMarquardtDamping
 from repro_torch.dist import AsyncSolveServer
 from repro_torch.launch.mesh import mesh_from_shape as make_serve_mesh
-from repro_torch.launch.trainer import build_server
+from repro_torch.fleet.wire import tensor_of
+from repro_torch.launch.trainer import build_fleet, build_server
 from repro_torch.obs import (FlightRecorder, HealthMonitor, MetricsRegistry,
                              ProfileHooks, Tracer, start_metrics_server,
                              write_snapshot)
-from repro_torch.roadmap import queue
 from repro_torch.serve.state import serve_state_tree
 
 __all__ = ["serve_main", "serve_trace"]
@@ -233,11 +243,18 @@ def _parser() -> argparse.ArgumentParser:
                     help="serve through the concurrent AsyncSolveServer "
                          "(a worker thread; responses as the eager "
                          "server's)")
-    # the reference's fleet: accepted, refused until its slice
-    ap.add_argument("--fleet", type=int, default=0, metavar="N")
+    ap.add_argument("--fleet", type=int, default=0, metavar="N",
+                    help="serve through N worker processes behind the "
+                         "repro_torch.fleet.Dispatcher (0: in-process "
+                         "server)")
     ap.add_argument("--route", choices=["round_robin", "least_loaded",
-                                        "by_adapter"], default="round_robin")
-    ap.add_argument("--no-reconcile", action="store_true")
+                                        "by_adapter"],
+                    default="round_robin",
+                    help="fleet routing policy (--fleet)")
+    ap.add_argument("--no-reconcile", action="store_true",
+                    help="fleet: do not gossip window folds between "
+                         "workers — folds partition by routed worker "
+                         "(meaningful with --route by_adapter)")
     ap.add_argument("--tenants", type=int, default=0, metavar="N",
                     help="multi-tenant trace: requests carry zipf-"
                          "distributed tenant ids over N tenants; each "
@@ -278,24 +295,14 @@ def _parser() -> argparse.ArgumentParser:
     return ap
 
 
-# flag → (is it asked for, the key of the roadmap queue that ports it)
-def _later_flags(args) -> dict:
-    return {
-        "--fleet": (args.fleet > 0, "fleet"),
-        "--no-reconcile": (args.no_reconcile, "fleet"),
-        "--route": (args.route != "round_robin", "fleet"),
-    }
-
-
 def serve_main(argv=None):
     args = _parser().parse_args(argv)
-    for flag, (asked, key) in _later_flags(args).items():
-        if asked:
-            raise NotImplementedError(f"{flag} comes with {queue(key)}")
     cfg = configs.get_smoke(args.arch) if args.smoke \
         else configs.get_config(args.arch)
     if args.n_layers is not None:
         cfg = cfg.scaled(n_layers=args.n_layers)
+    if args.fleet:
+        return _serve_fleet(args, cfg)
     layout = None if args.mesh == "replicated" else args.mesh
     mesh = None if layout is None \
         else make_serve_mesh(args.mesh_shape, args.device)
@@ -407,20 +414,24 @@ def serve_main(argv=None):
     return server, [rec["loss"] for rec in out["records"]]
 
 
-def _start_endpoint(args, registry, health, endpoints: list):
+def _start_endpoint(args, registry, health, endpoints: list,
+                    extra_snapshots=None):
     """``--metrics-port`` / ``--health-port``: bind the HTTP exposition
-    endpoint(s), each also serving ``health()`` at ``/health``; the
-    servers are appended to ``endpoints`` for the caller to close.
-    Returns the metrics port (None without ``--metrics-port``)."""
+    endpoint(s), each also serving ``health()`` at ``/health`` and merging
+    ``extra_snapshots()`` (the fleet's worker snapshots) into every
+    response; the servers are appended to ``endpoints`` for the caller to
+    close. Returns the metrics port (None without ``--metrics-port``)."""
     port = None
     if args.metrics_port is not None:
         srv, port = start_metrics_server(registry, port=args.metrics_port,
+                                         extra_snapshots=extra_snapshots,
                                          health=health)
         endpoints.append(srv)
         print(f"metrics endpoint: http://127.0.0.1:{port}/metrics",
               flush=True)
     if args.health_port is not None and args.health_port != port:
         srv, hport = start_metrics_server(registry, port=args.health_port,
+                                          extra_snapshots=extra_snapshots,
                                           health=health)
         endpoints.append(srv)
         print(f"health endpoint: http://127.0.0.1:{hport}/health",
@@ -449,6 +460,139 @@ def _finish_obs(args, snapshot, *, tracer=None, port=None,
             f"http://127.0.0.1:{port}/health", timeout=10).read())
         print(f"health scrape: verdict={rep['verdict']} "
               f"active={sorted(rep.get('active', {})) or 'none'}")
+
+
+def _serve_fleet(args, cfg):
+    """The serving loop against a multi-process fleet: the model (score
+    pass + decode + live params) stays here as the traffic source; solves
+    and window maintenance happen in the worker processes, folds
+    reconciled through the dispatcher's gossip log. ``--async`` /
+    ``--mesh 1d|2d`` select each worker's inner server flavour. Every
+    request's adapter key is its tenant, or ``user{r mod 4}``."""
+    registry = MetricsRegistry()
+    worker_layout = None if args.mesh == "replicated" else args.mesh
+    endpoints, dispatcher = [], None
+    try:
+        t0 = time.perf_counter()
+        dispatcher, h = build_fleet(
+            cfg, n_workers=args.fleet, route=args.route,
+            reconcile=not args.no_reconcile, window=args.window,
+            seq=args.seq, damping=args.damping, max_tokens=args.max_tokens,
+            max_requests=args.max_requests,
+            refresh_every=args.refresh_every, drift_tol=args.drift_tol,
+            drift_frac=args.drift_frac,
+            async_workers=args.async_ or worker_layout is not None,
+            worker_layout=worker_layout,
+            window_dtype=None if args.window_dtype == "fp32" else "bfloat16",
+            tenant_rank=args.tenant_rank if args.tenants else None,
+            tenant_budget_mb=args.tenant_budget_mb, seed=args.seed,
+            trace=bool(args.trace_out), registry=registry,
+            audit_every=args.audit_every, profile_dir=args.profile_dir,
+            record_dir=args.record_dir, device=args.device)
+        # the endpoint folds the workers' last-pong snapshots into every
+        # response — one scrape sees the whole fleet. /health merges the
+        # last-seen pong verdicts (refresh=False: the HTTP thread must not
+        # pump the dispatcher's channels under the serving loop)
+        port = _start_endpoint(
+            args, registry,
+            lambda: dispatcher.fleet_health(refresh=False), endpoints,
+            extra_snapshots=lambda: [w.metrics for w in dispatcher.workers
+                                     if w.metrics])
+        print(f"fleet up: {args.fleet} workers, route={args.route}, "
+              f"reconcile={not args.no_reconcile}, n={args.window} on "
+              f"{h.device} ({(time.perf_counter() - t0) * 1e3:.0f} ms)",
+              flush=True)
+
+        rng = np.random.default_rng(args.seed)
+        losses, rounds, pending = [], 0, {}
+        for r in range(args.requests):
+            full = h.data.batch_at(r + 1)
+            take = np.sort(rng.choice(args.window, size=args.adapt_examples,
+                                      replace=False))
+            ex = {key: val[take] for key, val in full.items()}
+            loss, v, rows = h.score_grads(h.params, ex)
+            lam = args.damping * (4.0 if r % 5 == 4 else 1.0)
+            tenant = f"t{(int(rng.zipf(1.5)) - 1) % args.tenants}" \
+                if args.tenants else None
+            uid = dispatcher.submit(
+                v, damping=lam, tokens=args.adapt_examples * args.seq,
+                rows=rows, tenant=tenant,
+                adapter=tenant if tenant is not None else f"user{r % 4}")
+            pending[uid] = (float(loss), ex)
+
+            if (r + 1) % args.burst and r != args.requests - 1:
+                continue
+            results = dispatcher.flush()
+            for res in results:
+                loss_before, ex_req = pending.pop(res.uid)
+                # x comes home as a host array: onto the front's device
+                h.apply_update(tensor_of(res.x, h.device), lr=args.lr)
+                losses.append(loss_before)
+                if args.decode_tokens > 0:
+                    ids = h.decode(ex_req["inputs"][:1, :args.seq],
+                                   new_tokens=args.decode_tokens)
+                    print(f"req {res.uid:3d} λ={res.damping:.3g} "
+                          f"loss {loss_before:8.4f} "
+                          f"solve {res.latency_s * 1e3:6.1f} ms "
+                          f"tokens {ids[0][:8].tolist()}", flush=True)
+            if results:
+                rounds += 1
+                if args.ckpt_every and rounds % args.ckpt_every == 0:
+                    dispatcher.checkpoint(args.ckpt_dir, rounds)
+                    if args.metrics_snapshot:
+                        write_snapshot(
+                            args.metrics_snapshot,
+                            dispatcher.fleet_metrics(),
+                            health=dispatcher.fleet_health(refresh=False))
+
+        dispatcher.reconcile()
+        if not args.no_reconcile and len(dispatcher.workers) > 1:
+            probe = dispatcher.probe(
+                rng.normal(size=(int(v.shape[0]),)).astype(np.float32))
+            xs = [np.asarray(x) for x in probe.values()]
+            worst = max(np.linalg.norm(a - xs[0])
+                        / max(np.linalg.norm(xs[0]), 1e-30) for a in xs[1:])
+            print(f"reconciled probe agreement across "
+                  f"{len(xs)} workers: max rel diff {worst:.2e}")
+        s = dispatcher.metrics.summary()
+        print(f"served {s['served']} requests: "
+              f"p50 {s['p50_ms']:.1f} ms  p99 {s['p99_ms']:.1f} ms  "
+              f"{s['rps']:.1f} req/s")
+        fh = dispatcher.fleet_health()
+        print(f"fleet health: {fh['verdict']} ({fh['members']} members, "
+              f"active: {sorted(fh['active']) or 'none'})")
+        for wid, rep in sorted(dispatcher.heartbeat().items()):
+            line = (f"  worker {wid}: served {rep['served']}, "
+                    f"applied {rep['applied']} fold events")
+            tp = rep.get("tenants") or {}
+            if tp:
+                line += (f"; tenants {tp.get('tenants', 0)} "
+                         f"({tp.get('resident', 0)} resident, "
+                         f"{tp.get('spilled', 0)} spilled), "
+                         f"hot {tp.get('hot', {})}")
+            print(line)
+        if args.record_dir:
+            incidents = dispatcher.collect_incidents(refresh=False)
+            nb = sum(len(paths) for paths in incidents.values())
+            print(f"flight recorder: {nb} incident bundle(s) across "
+                  f"{len(incidents)} worker(s)")
+            for wid, paths in sorted(incidents.items()):
+                for path in paths:
+                    print(f"  worker {wid}: {path}")
+        if args.ckpt_every and rounds:
+            path = dispatcher.checkpoint(args.ckpt_dir, rounds)
+            print(f"fleet checkpoint (per-worker ServeState + manifest) "
+                  f"-> {path}")
+        _finish_obs(args, dispatcher.fleet_metrics(),
+                    tracer=dispatcher.tracer, port=port,
+                    health_report=dispatcher.fleet_health(refresh=False))
+    finally:
+        if dispatcher is not None:
+            dispatcher.shutdown()
+        for srv in endpoints:
+            srv.shutdown()
+            srv.server_close()
+    return dispatcher, losses
 
 
 if __name__ == "__main__":

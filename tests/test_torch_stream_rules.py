@@ -37,7 +37,8 @@ from repro_torch.kernels.serve_solve import (ROUTES, apply_split,
                                              cross_split, cross_tensor_cores,
                                              cross_tile, kernels_launched,
                                              stream_route)
-from repro_torch.serve.main import _later_flags, _parser
+from repro_torch.serve import main as serve_main_module
+from repro_torch.serve.main import _parser
 
 try:
     import jax.numpy as jnp
@@ -225,7 +226,7 @@ def test_reference_serve_flags_raise_away_from_defaults(flag):
     assert str(getattr(args, dest)) == {"--ckpt-dir": "ck",
                                         "--tenant-rank": "2",
                                         "--tenant-budget-mb": "64.0"}[flag[0]]
-    assert not any(asked for asked, _ in _later_flags(args).values())
+    assert not hasattr(serve_main_module, "_later_flags")
 
 
 def test_reference_serve_flags_at_their_defaults_are_not_refused():
@@ -236,7 +237,7 @@ def test_reference_serve_flags_at_their_defaults_are_not_refused():
         args = _parser().parse_args(argv)
         assert (args.ckpt_dir, args.tenant_rank, args.tenant_budget_mb) \
             == ("artifacts/serve_ckpt", 4, None)
-        assert not any(asked for asked, _ in _later_flags(args).values())
+        assert not hasattr(serve_main_module, "_later_flags")
 
 
 # (n, m, offset): m ragged in fp32 (m % 4 ≠ 0), ragged in bf16 only
