@@ -149,7 +149,19 @@ Phases, each printing its own lines:
    v; (b) the same with blocked scores, 2 steps; (c) 6 streaming steps
    (2 refreshes, 4 hits); (d) a checkpoint saved after step 1 of (a),
    restored bit for bit, step 2 rerun; one profiled step on the wgmma
-   Gram;
+   Gram; then the same trainer over a (2, 2) mesh of the card;
+13g. dry run against the card — ``repro_torch.launch.dryrun`` on meta
+   tensors held to the card: (a) ``chol_solve_fused`` at each Table-1
+   shape with S and v resident: the card's peak within [0.8, 1.25] of
+   the trace's resident bytes on a one-position mesh, its launches equal
+   to the trace's would-be launches, its time at least 0.95 × the
+   roofline's bound; (b) the dry run of phase 13b's configuration beside
+   that phase's measured peak, within [0.5, 2.0]; (c) whisper-base
+   decode_32k (multi-pod mesh; peak below the card's 80 GB),
+   qwen3-moe-235b-a22b train_4k (single) and the (4096, 1,000,000)
+   solver (multi), each traced in this process; (d)
+   ``examples_torch/quickstart.py`` at (512, 100,000): each residual
+   below 1e-2, two cache hits and one refresh;
 14. long prefill — all 28 layers of llama3.2-3b, one 32,768-token prompt
    (configs/shapes.py prefill_32k, batch 32 → 1): 28 launches, the
    profile showing the wgmma kernel; layer 0's attention at that shape
@@ -210,6 +222,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import gc
+import importlib.util
 import io
 import json
 import os
@@ -255,6 +268,9 @@ from repro_torch.kernels.ref import WGMMA_HEAD_DIMS  # noqa: E402
 from repro_torch.kernels.serve_solve import ROUTES as STREAM_ROUTES  # noqa: E402
 from repro_torch.kernels.serve_solve import (  # noqa: E402
     cross_tensor_cores, kernels_launched, stream_route_of, trisolve_columns)
+from repro_torch.configs.shapes import WorkloadShape  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch.hlo_analysis import HW  # noqa: E402
 from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.launch.train import (batch_to, make_prefill,  # noqa: E402
                                       make_ngd_train_step, make_serve_step)
@@ -596,10 +612,13 @@ def device_line() -> str:
 
 def peaks(name: str) -> tuple[float, float, float, float]:
     """(bytes/s, fp32 FLOP/s, dense TF32 and dense bf16 tensor FLOP/s) from
-    NVIDIA's data sheets: H100 SXM 3.35 TB/s, 67, 494.7 and 989 TFLOP/s;
+    NVIDIA's data sheets: the H100 SXM's from the dry run's roofline
+    (``launch/hlo_analysis.HW``: 3.35 TB/s, 67, 494.7 and 989 TFLOP/s);
     the PCIe part 2.0 TB/s, 51, 378 and 756 TFLOP/s."""
-    return (2.0e12, 51e12, 378e12, 756e12) if "PCIe" in name \
-        else (3.35e12, 67e12, 494.7e12, 989e12)
+    if "PCIe" in name:
+        return (2.0e12, 51e12, 378e12, 756e12)
+    return (HW["hbm_bw"], HW["fp32_flops"], HW["tf32_flops"],
+            HW["peak_flops"])
 
 
 def build() -> None:
@@ -1051,27 +1070,50 @@ def profile(label: str, fn, prepare=None, calls=None) -> dict:
     return busy
 
 
-def profile_gram_path(label: str, fn) -> dict:
-    """``profile`` of path A or B: where the profiler saw device kernels,
-    the Gram ran on the wgmma kernel, never on the CUDA-core one. A
-    capture that shows device kernels but no Gram kernel of either route
-    is taken again, up to three times: late in a full run the profiler once
-    kept only the last kernel of a solve (0.13 of 4.2 ms), while the same
-    solve profiled alone shows every kernel."""
-    for _ in range(3):
-        busy = profile(label, fn)
-        names = " ".join(busy)
-        if not busy or "gram_tc_kernel" in names \
-                or "gram_partial_kernel" in names:
+def profile_retaken(label: str, fn, seen, calls=None, tries: int = 3) -> dict:
+    """``profile``, taken again (up to ``tries`` captures in all) while the
+    capture shows device kernels but not what ``seen(busy, calls)`` looks
+    for. Late in a full run the profiler has kept only the last kernel of a
+    solve (0.13 of 4.2 ms), and a full run once failed its Gram check on
+    path B, while the same calls profiled alone show every kernel: it can
+    lose records, never invent them, so a capture is retaken only for what
+    a lossy one would lack."""
+    for i in range(tries):
+        if calls is not None:
+            calls.clear()
+        busy = profile(label, fn, calls=calls)
+        if not busy or seen(busy, calls):
             break
-        print(f"  {label}: the profile shows no Gram kernel; taking it "
-              "again", flush=True)
-    if not busy:
-        return busy
-    if "gram_tc_kernel" not in names or "gram_partial_kernel" in names:
+        if i + 1 < tries:
+            print(f"  {label}: the profile lost kernels it looks for; "
+                  "taking it again", flush=True)
+    return busy
+
+
+def profile_gram_path(label: str, fn, seen=None) -> dict:
+    """``profile`` of path A or B (retaken while ``seen`` fails, where it is
+    given), and the Gram ran on the wgmma kernel, never on the CUDA-core
+    one. The gate is the Gram's route counts over the profiled calls
+    (``gram.ROUTES``, counted where the wrapper launches the kernel of that
+    route; the library launches the route it is given or fails), which
+    hold every launch; the profiler's view must agree where it shows a
+    Gram kernel."""
+    before = dict(GRAM_ROUTES)
+    busy = profile_retaken(
+        label, fn, lambda b, c: "gram_tc_kernel" in " ".join(b)
+        and (seen is None or seen(b, c)))
+    ran = {k: GRAM_ROUTES[k] - before[k] for k in GRAM_ROUTES}
+    if not ran["wgmma"] or ran["cuda_cores"]:
         raise AssertionError(f"{label}: the Gram did not run on the wgmma "
-                             "kernel alone")
-    print(f"  {label}: the Gram on gram_tc_kernel only", flush=True)
+                             f"kernel alone: launches by route {ran}")
+    names = " ".join(busy)
+    if "gram_partial_kernel" in names:
+        raise AssertionError(f"{label}: the profile shows the CUDA-core "
+                             f"Gram kernel, the route counts {ran}")
+    shown = ("the profile shows gram_tc_kernel" if "gram_tc_kernel" in names
+             else "the profile kept no Gram kernel")
+    print(f"  {label}: the Gram on gram_tc_kernel only (launches by route "
+          f"{ran}; {shown})", flush=True)
     return busy
 
 
@@ -2916,12 +2958,14 @@ def lm_trace(cfg, mode, *, device="cuda", against=None, profile_round=False,
         label = ("one serving round (score pass, solve + fold, update"
                  + (f", prefill + {decode_tokens - 1} decode steps)"
                     if decode_tokens else ", no decode)"))
-        busy = profile(label, lambda: serve_trace(
+        wants_attention = bool(attention_layers(cfg) and decode_tokens)
+        busy = profile_retaken(label, lambda: serve_trace(
             server, h, requests=1, window=LM_WINDOW,
             adapt_examples=LM_ADAPT, seq=LM_SEQ, decode_tokens=decode_tokens,
             damping=LM_LAM0, lr=LM_LR, burst=1, seed=SEED,
-            log=lambda line: None))
-        if attention_layers(cfg) and decode_tokens:
+            log=lambda line: None), lambda b, _: not wants_attention
+            or any("flash_" in k for k in b))
+        if wants_attention:
             require_wgmma_attention(label, busy)
     del server, h
     same = {rec["request"]: same_err[rec["uid"]] for rec in recs} \
@@ -3516,8 +3560,9 @@ def long_prefill(cfg, T, device="cuda") -> dict:
         raise AssertionError(f"long prefill: layer 0 attention {err:.3e}")
     if device == "cuda":
         label = f"one {cfg.n_layers}-layer prefill of {T} tokens"
-        require_wgmma_attention(label, profile(
-            label, lambda: prefill(params, {"tokens": tokens})))
+        require_wgmma_attention(label, profile_retaken(
+            label, lambda: prefill(params, {"tokens": tokens}),
+            lambda b, _: any("flash_" in k for k in b)))
     return {"counts": counts, "ms": ms}
 
 
@@ -4039,6 +4084,8 @@ def train_run(cfg, label: str, steps: int, *, solver="chol",
             save_state(ckpt_dir, s, state)
             out["saved"] = state
     out["metrics"], out["state"] = metrics, state
+    out["peak"] = torch.cuda.max_memory_allocated() if device == "cuda" \
+        else None
     with torch.no_grad():
         held.append(float(api.loss(state["params"], batch0)[0]))
         moved = sum(int((a != b).sum()) for a, b in
@@ -4182,9 +4229,10 @@ def lm_trainer_path(cfg, device: str = "cuda") -> dict:
     one = {part: {key: run[key] for key in ("losses", "ms", "natgrad")}
            for part, run in runs.items()}
     one["streaming"] = runs_stream
+    peak = dense["peak"]
     del restored, runs, dense
     gc.collect()
-    return {"counts": counts, "m": m, "one": one}
+    return {"counts": counts, "m": m, "one": one, "peak": peak}
 
 
 # ---------------------------------------------------------------------------
@@ -4562,6 +4610,163 @@ def mesh_trainer_path(cfg, one: dict) -> dict:
 # ---------------------------------------------------------------------------
 # 12. times and bounds at the main-path shape
 # ---------------------------------------------------------------------------
+
+# ---------------------------------------------------------------------------
+# 13g. the dry run against the card (ROADMAP A9)
+# ---------------------------------------------------------------------------
+
+# The dry run's predictions held to the card's own readings of the same
+# calls. Memory: the card's peak over the call (max_memory_allocated,
+# less what other phases left allocated) ÷ the meta trace's resident
+# bytes (arguments + the high-water mark of what the call allocates) on a
+# one-position mesh; the caching allocator rounds each block up to 512
+# bytes, so [0.8, 1.25] for a single solve and [0.5, 2.0] for the LM
+# trainer's phase, whose peak spans three steps, step 0's float64 check
+# and the allocator's reuse across them. Time: the call (CUDA events) may
+# not beat 0.95 × the roofline's bound of the trace's operations and
+# bytes at the H100 SXM's peaks (``hlo_analysis.HW``): a faster reading
+# would mean wrong peaks or wrong counts.
+DRY_SOLVE_GATE, DRY_TRAINER_GATE, DRY_TIME_GATE = (0.8, 1.25), (0.5, 2.0), 0.95
+# full-width cells (ROADMAP A9): the reference's slow test's cell, the
+# largest model's train cell and the paper-scale solver on the multi-pod
+# mesh, traced on meta in this process
+DRY_CELLS = (("whisper-base", "decode_32k", "multi", None),
+             ("qwen3-moe-235b-a22b", "train_4k", "single", None),
+             (None, None, "multi", (4096, 1_000_000)))
+DRY_CARD_BYTES = 80 * 2 ** 30           # the card's 80 GB of device memory
+# the ported quickstart at its defaults; the reference's checks
+# (tests/test_examples.py:24-33)
+QUICKSTART_GATE, QUICKSTART_CACHE = 1e-2, (2, 1)
+
+
+def one_position_mesh():
+    return make_mesh((1, 1), ("data", "model"), device="meta")
+
+
+def dry_solve_checks() -> dict:
+    """(a) Algorithm 1 at each Table-1 shape: the dry run's resident bytes,
+    would-be launches and roofline bound against the card's peak, launch
+    counts and time of the same ``chol_solve_fused`` call, S and v already
+    resident. Returns the launches of one call a shape."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 16)
+    mesh = one_position_mesh()
+    total = dict.fromkeys(ops.launch_counts(), 0)
+    for n, m in TABLE1:
+        rec = dryrun.analyze_cell(dryrun.build_solver_cell(n, m, mesh), mesh)
+        predicted = rec["memory"]["resident_bytes"]
+        would = {k: int(c["launches"])
+                 for k, c in rec["cost"]["kernels"].items()}
+        bound_ms = rec["roofline"]["bound_s"] * 1e3
+        S, v = solve_inputs(n, m, gen)
+        torch.cuda.synchronize()
+        other = torch.cuda.memory_allocated() - (S.numel() + v.numel()) * 4
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        x = ops.chol_solve_fused(S, v, LAM0)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - other
+        counts = {k: c for k, c in ops.launch_counts().items() if c}
+        add_counts(total, ops.launch_counts())
+        if x.shape != (m,) or not torch.isfinite(x).all():
+            raise AssertionError(f"dry run vs card {n}x{m}: x not finite")
+        del x
+        ms = time_ms(lambda: ops.chol_solve_fused(S, v, LAM0))
+        ratio = peak / predicted
+        print(f"  {n}x{m}: peak {peak:,} B on the card, {predicted:,} B "
+              f"predicted (arguments {rec['memory']['argument_bytes']:,} + "
+              f"{rec['memory']['peak_bytes']:,}), ratio {ratio:.4f} (gate "
+              f"{DRY_SOLVE_GATE}); launches {counts}, predicted {would}; "
+              f"{ms:.4f} ms against a bound of {bound_ms:.4f} ms "
+              f"({rec['roofline']['dominant']}; ratio {ms / bound_ms:.2f}, "
+              f"gate ≥ {DRY_TIME_GATE})", flush=True)
+        if not DRY_SOLVE_GATE[0] <= ratio <= DRY_SOLVE_GATE[1]:
+            raise AssertionError(f"dry run vs card {n}x{m}: peak ratio "
+                                 f"{ratio:.4f}")
+        if counts != would:
+            raise AssertionError(f"dry run vs card {n}x{m}: launches "
+                                 f"{counts}, predicted {would}")
+        if not ms >= DRY_TIME_GATE * bound_ms:
+            raise AssertionError(f"dry run vs card {n}x{m}: {ms:.4f} ms beats "
+                                 f"the bound {bound_ms:.4f} ms")
+        del S, v
+    return total
+
+
+def dry_trainer_check(peak: int) -> None:
+    """(b) The dry run of the LM NGD trainer phase's own configuration —
+    llama3.2-3b at LM_LAYERS layers, bf16, batch TRAIN_BATCH, seq
+    TRAIN_SEQ, one position, Algorithm 1 on the kernels — beside that
+    phase's measured peak (its dense kernel run)."""
+    mesh = one_position_mesh()
+    cell = dryrun.build_cell(
+        LM_ARCH, WorkloadShape("lm_trainer", "train", TRAIN_SEQ, TRAIN_BATCH),
+        mesh, optimizer="ngd", overrides={"n_layers": str(LM_LAYERS)})
+    rec = dryrun.analyze_cell(cell, mesh)
+    mem = rec["memory"]
+    ratio = peak / mem["resident_bytes"]
+    would = {k: int(c["launches"]) for k, c in rec["cost"]["kernels"].items()}
+    print(f"  LM NGD trainer ({LM_ARCH}, {LM_LAYERS} layers, batch "
+          f"{TRAIN_BATCH}, seq {TRAIN_SEQ}): the phase's peak {peak:,} B; "
+          f"predicted {mem['resident_bytes']:,} B (arguments "
+          f"{mem['argument_bytes']:,} + {mem['peak_bytes']:,}); ratio "
+          f"{ratio:.4f} (gate {DRY_TRAINER_GATE}); a step's launches "
+          f"predicted {would}; the trace {rec['compile_s']} s; roofline "
+          f"bound {rec['roofline']['bound_s'] * 1e3:.2f} ms "
+          f"({rec['roofline']['dominant']})", flush=True)
+    if not DRY_TRAINER_GATE[0] <= ratio <= DRY_TRAINER_GATE[1]:
+        raise AssertionError(f"dry run vs the LM trainer: ratio {ratio:.4f}")
+
+
+def dry_cells() -> None:
+    """(c) The full-width cells, each traced on meta in this process."""
+    t_all = time.perf_counter()
+    for arch, shape, mesh_kind, solver in DRY_CELLS:
+        t0 = time.perf_counter()
+        rec = dryrun.run_cell(arch, shape, mesh_kind, solver_nm=solver)
+        mem, roof = rec["memory"], rec["roofline"]
+        tag = dryrun._cell_id(rec)
+        print(f"  {tag}: {time.perf_counter() - t0:.1f} s; arguments "
+              f"{mem['argument_bytes']:,} B a position (replicated; the "
+              f"sharding rules' {mem['sharded_argument_bytes']:,}), peak "
+              f"{mem['peak_bytes']:,} B, flops/position "
+              f"{rec['cost']['flops']:.3e}, wire {rec['collectives']['total_wire_bytes']:,} B, "
+              f"bound {roof['bound_s']:.4f} s ({roof['dominant']})",
+              flush=True)
+        if rec["chips"] != (512 if mesh_kind == "multi" else 256) \
+                or not all(np.isfinite(roof[k]) for k in (
+                    "t_compute_s", "t_memory_s", "t_collective_s")):
+            raise AssertionError(f"dry run {tag}: {rec['chips']} positions, "
+                                 f"roofline {roof}")
+        if arch == "whisper-base" and not mem["peak_bytes"] < DRY_CARD_BYTES:
+            raise AssertionError(f"dry run {tag}: peak {mem['peak_bytes']:,} "
+                                 f"B does not fit the card")
+    print(f"  the full-width cells {time.perf_counter() - t_all:.1f} s",
+          flush=True)
+
+
+def quickstart_path() -> dict:
+    """(d) ``examples_torch/quickstart.py`` at its defaults (512, 100,000)
+    on the card, under the reference's checks. Returns its launches."""
+    path = Path(__file__).resolve().parent / "examples_torch" / "quickstart.py"
+    spec = importlib.util.spec_from_file_location("quickstart_torch", path)
+    quickstart = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(quickstart)
+    ops.reset_launch_counts()
+    results = quickstart.main(emit=lambda line: print(f"  {line}",
+                                                      flush=True))
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    for name in ("chol", "eigh", "svd"):
+        if not results[name][1] < QUICKSTART_GATE:
+            raise AssertionError(f"quickstart {name}: residual "
+                                 f"{results[name][1]:.3e}")
+    if results["cache"] != QUICKSTART_CACHE:
+        raise AssertionError(f"quickstart cache (hits, refreshes) "
+                             f"{results['cache']}")
+    for kname in ("gram_sv", "cholesky", "trisolve", "ngd_apply"):
+        require_launches("quickstart", counts, kname)
+    return counts
+
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     for _ in range(warmup):
@@ -4993,6 +5198,19 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     print(f"  {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    phase(f"dry run against the card: (a) chol_solve_fused at {TABLE1} "
+          f"(peak, launches, time vs the meta trace's resident bytes, "
+          f"would-be launches and roofline bound); (b) the LM NGD trainer "
+          f"phase's peak vs its dry run; (c) full-width cells on meta; (d) "
+          f"examples_torch/quickstart.py at (512, 100000)")
+    paths["dry run, Table-1 solves"] = dry_solve_checks()
+    dry_trainer_check(trainer["peak"])
+    dry_cells()
+    paths["quickstart"] = quickstart_path()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  {time.perf_counter() - t0:.1f} s", flush=True)
     phase(f"long prefill, {LM_ARCH}, all 28 layers, bf16, one prompt of "
           f"{LONG_T} tokens")
     paths["long prefill"] = long_prefill(configs.get_config(LM_ARCH),
@@ -5069,6 +5287,7 @@ def main() -> int:
                   "LM serving CLI, tenants", "LM serving CLI, sharded",
                   "LM NGD trainer",
                   *(k for k in paths if k.startswith("mesh trainer")),
+                  "dry run, Table-1 solves", "quickstart",
                   "long prefill") + tuple(
                       f"LM serving, {a}" for a, _, _, _ in ZOO_SERVED) + (
                       "mamba2 prefill + decode", "LM serving CLI, zoo",
@@ -5085,8 +5304,10 @@ def main() -> int:
     profile_flush(trace, torch.bfloat16)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
     S, v = solve_inputs(N, M, gen)
-    busy = profile_gram_path(f"one chol_solve_fused at {N}x{M}",
-                             lambda: ops.chol_solve_fused(S, v, LAM0))
+    busy = profile_gram_path(
+        f"one chol_solve_fused at {N}x{M}",
+        lambda: ops.chol_solve_fused(S, v, LAM0),
+        seen=lambda b, _: any("tri::trisolve_kernel" in k for k in b))
     require_cluster_trisolve(f"one chol_solve_fused at {N}x{M}", busy)
     opt, st, p, Xd, yd = step_inputs
     profile_gram_path(f"one NGD step (n = {MLP_N})",
@@ -5094,9 +5315,11 @@ def main() -> int:
     fac = chol_factorize(S, LAM0)
     X_new, X_old = slide(S, 0, gen)
     calls = {}
-    busy = profile(f"one update + downdate slide at {N}x{M}, k = {SLIDE_K}",
-                   lambda: fac.update(X_new, S_new=S).downdate(X_old, S_new=S),
-                   calls=calls)
+    busy = profile_retaken(
+        f"one update + downdate slide at {N}x{M}, k = {SLIDE_K}",
+        lambda: fac.update(X_new, S_new=S).downdate(X_old, S_new=S),
+        lambda _, c: sum(n for key, n in c.items()
+                         if "cholupdate_kernel" in key) >= 2, calls=calls)
     require_one_launch_a_sweep("the slide", busy, calls, sweeps=2)
     del S, v, fac
 

@@ -466,7 +466,12 @@ def svd_solve(S, v, damping, *, mode: Mode = "auto"):
         return _via_dense(svd_solve, S, v, damping, mode=mode)
     S, v, mode = _prepare(S, v, mode)
     lam = real_scalar(damping, S.dtype)
-    _, s, Vt = torch.linalg.svd(S, full_matrices=False)
+    # On CUDA torch's default SVD (cuSOLVER's Jacobi gesvdj) leaves V's
+    # rows orthonormal only to ≈ 3e-4, which (v − V Vᵀv)/λ amplifies: a
+    # residual of 0.11 at (512, 100,000), λ = 1e-2, where gesvd gives the
+    # CPU's 3.5e-3 (tools/svd_drivers.py).
+    _, s, Vt = torch.linalg.svd(S, full_matrices=False,
+                                driver="gesvd" if S.is_cuda else None)
     Vt_v = Vt @ v
     core = Vt_v / _bcast(s * s + lam, Vt_v)
     V = ct(Vt, mode)

@@ -9,6 +9,13 @@ flags, so an edited kernel is rebuilt and an unchanged one is reused.
 
 Importing this module needs no compiler: only a kernel launch (or an
 explicit ``build()``) does, and without ``nvcc`` it raises.
+
+A wrapper called with operands on the meta device (the dry run,
+``launch/dryrun.py``) takes the same route as on CUDA up to the launch:
+it allocates its outputs and scratch, on meta, then ``would_launch``
+records the launch — one a call, with the operations and bytes its
+kernel's bound counts — in place of building and calling the library.
+A meta tensor computes nothing; a CUDA tensor still launches or raises.
 """
 from __future__ import annotations
 
@@ -24,7 +31,8 @@ from typing import Dict, Optional
 import torch
 
 __all__ = ["BUILD_ROOT", "SOURCES", "build", "call", "check", "library",
-           "stream_of"]
+           "nbytes", "on_card", "reset_would_launch", "stream_of",
+           "would_launch", "would_launch_counts"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("serve_solve", "fold", "gram", "cholesky", "ngd_apply",
@@ -38,6 +46,8 @@ I = ctypes.c_int
 F = ctypes.c_float
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+# the meta route's record: {wrapper: {"launches", "flops", "bytes"}}
+_WOULD: Dict[str, Dict[str, float]] = {}
 
 
 def _nvcc() -> str:
@@ -121,6 +131,45 @@ def call(lib: ctypes.CDLL, fn: str, device: torch.device, *args) -> None:
     if err:
         msg = lib.repro_error_string(err).decode()
         raise RuntimeError(f"{fn}: CUDA error {err} ({msg})")
+
+
+def on_card(t: torch.Tensor) -> bool:
+    """Whether ``t`` takes a kernel's wrapper: a CUDA tensor (the launch)
+    or a meta tensor (the dry run's would-be launch)."""
+    return t.device.type in ("cuda", "meta")
+
+
+def nbytes(*tensors: Optional[torch.Tensor]) -> int:
+    """Bytes of the given tensors (``None`` skipped): what a kernel reads
+    or writes when it touches each once."""
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def would_launch(device: torch.device, name: str, *, flops: float,
+                 nbytes: float) -> bool:
+    """On the meta device: record one would-be launch of ``name``'s kernel,
+    with its operations and the bytes it must move, and return True (the
+    caller then skips the build and the launch). False on any other
+    device."""
+    if device.type != "meta":
+        return False
+    rec = _WOULD.setdefault(name, {"launches": 0, "flops": 0.0,
+                                   "bytes": 0.0})
+    rec["launches"] += 1
+    rec["flops"] += float(flops)
+    rec["bytes"] += float(nbytes)
+    return True
+
+
+def would_launch_counts() -> Dict[str, Dict[str, float]]:
+    """{wrapper: {"launches", "flops", "bytes"}} of the meta route since
+    the last reset."""
+    return {k: dict(v) for k, v in _WOULD.items()}
+
+
+def reset_would_launch() -> None:
+    _WOULD.clear()
 
 
 def check(name: str, t: torch.Tensor, *, device: torch.device, dtypes,

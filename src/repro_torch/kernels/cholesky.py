@@ -30,7 +30,7 @@ def cholesky_cuda(W: torch.Tensor) -> torch.Tensor:
     lower triangle is read). Any n: W and L stay in device memory; the
     scratch is 64·⌈n/64⌉ floats (the reciprocal pivots the panel solves
     share) and ⌈n/64⌉ + 2 integers (a flag a panel, the grid barrier)."""
-    if W.ndim != 2 or W.shape[0] != W.shape[1] or W.device.type != "cuda":
+    if W.ndim != 2 or W.shape[0] != W.shape[1] or not _build.on_card(W):
         raise ValueError(f"W must be a square CUDA matrix, got "
                          f"{tuple(W.shape)} on {W.device}")
     n = W.shape[0]
@@ -42,6 +42,9 @@ def cholesky_cuda(W: torch.Tensor) -> torch.Tensor:
                         device=W.device)
     sync = torch.empty((panels + 2,), dtype=torch.int32, device=W.device)
     L = torch.empty((n, n), dtype=torch.float32, device=W.device)
+    if _build.would_launch(W.device, "cholesky", flops=n ** 3 / 3,
+                           nbytes=_build.nbytes(W, L)):
+        return L
     _build.call(_build.library("cholesky", _SIGNATURES), "cholesky_launch",
                 W.device, W.data_ptr(), L.data_ptr(), rdiag.data_ptr(),
                 sync.data_ptr(), n, _build.stream_of(W))

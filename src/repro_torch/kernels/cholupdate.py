@@ -50,7 +50,7 @@ def cholupdate_cuda(L: torch.Tensor, X: torch.Tensor, sign: int = 1
     """L' (n, n) fp32 with L'·L'ᵀ = L·Lᵀ + sign·X·Xᵀ; its strict upper
     triangle is exactly zero. L (n, n) lower and X (n, k) fp32 contiguous
     on one CUDA device, 1 ≤ n ≤ ``MAX_N``, k ≥ 1; sign ±1."""
-    if L.ndim != 2 or L.shape[0] != L.shape[1] or L.device.type != "cuda":
+    if L.ndim != 2 or L.shape[0] != L.shape[1] or not _build.on_card(L):
         raise ValueError(f"L must be a square CUDA matrix, got "
                          f"{tuple(L.shape)} on {L.device}")
     n = L.shape[0]
@@ -66,6 +66,12 @@ def cholupdate_cuda(L: torch.Tensor, X: torch.Tensor, sign: int = 1
     out = torch.empty((n, n), dtype=torch.float32, device=L.device)
     work = torch.empty((work_floats(n, X.shape[1]),), dtype=torch.float32,
                        device=L.device)
+    # the lower triangle read and written once, X read once; 6 flop a
+    # rotation of a lower element, k rotations each
+    k = X.shape[1]
+    if _build.would_launch(L.device, "cholupdate", flops=3 * n * (n + 1) * k,
+                           nbytes=(n * (n + 1) + n * k) * 4):
+        return out
     _build.call(_build.library("cholupdate", _SIGNATURES), "cholupdate_launch",
                 L.device, L.data_ptr(), X.data_ptr(), out.data_ptr(),
                 work.data_ptr(), n, X.shape[1], sign, _build.stream_of(L))

@@ -25,7 +25,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels._build import F, I, P
 
 __all__ = ["HEAD_DIMS", "LAUNCHES", "MAX_BH", "flash_attention_cuda",
-           "supported"]
+           "live_pairs", "supported"]
 
 LAUNCHES = {"flash_attention": 0}
 
@@ -59,6 +59,17 @@ def _unsupported(q, k) -> Optional[str]:
     return None
 
 
+def live_pairs(Tq: int, Tk: int, causal: bool, window: Optional[int]) -> int:
+    """(query, key) pairs the mask keeps: query i sees keys j ≤ i when
+    causal, of which the last ``window``; every key otherwise."""
+    if not causal:
+        return Tq * Tk
+    w = min(Tk, window or Tk)
+    # Σ_{i<Tq} min(i + 1, w): a ramp up to w, then w a row
+    ramp = min(Tq, w)
+    return ramp * (ramp + 1) // 2 + (Tq - ramp) * w
+
+
 def supported(q: torch.Tensor, k: torch.Tensor) -> bool:
     """Whether the kernels take attention of q (B, Tq, H, hd) against k
     (and v, k's shape) (B, Tk, KH, hd): one dtype, fp32 or bf16; hd in
@@ -75,7 +86,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     rounded to v's dtype before P·V. q (B, Tq, H, hd), k and v (B, Tk, KH,
     hd), one dtype (fp32 or bf16), contiguous, on one CUDA device;
     raises on a CPU tensor first, then on shapes ``supported`` refuses."""
-    if not isinstance(q, torch.Tensor) or q.device.type != "cuda":
+    if not isinstance(q, torch.Tensor) or not _build.on_card(q):
         where = q.device if isinstance(q, torch.Tensor) else type(q).__name__
         raise ValueError(f"q is on {where}; the kernel needs CUDA")
     why = _unsupported(q, k)
@@ -92,6 +103,11 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("q, k and v must be 16-byte aligned")
     o = torch.empty_like(q)
+    if _build.would_launch(
+            q.device, "flash_attention",
+            flops=4 * hd * H * B * live_pairs(Tq, Tk, causal, window),
+            nbytes=_build.nbytes(q, k, v, o)):
+        return o
     _build.call(_build.library("flash_attention", _SIGNATURES),
                 "flash_attention_launch", q.device, q.data_ptr(), k.data_ptr(),
                 v.data_ptr(), o.data_ptr(), int(q.dtype == torch.bfloat16),

@@ -46,6 +46,9 @@ def fold_cols_cuda(S: torch.Tensor, rows: torch.Tensor):
     route = stream_route_of(S, rows)
     part = torch.empty((Pn, n + k, k), dtype=torch.float32, device=S.device)
     out = torch.empty((n + k, k), dtype=torch.float32, device=S.device)
+    if _build.would_launch(S.device, "fold_cols", flops=2 * (n + k) * m * k,
+                           nbytes=_build.nbytes(S, rows, out)):
+        return out[:n], out[n:]
     _build.call(_build.library("fold", _SIGNATURES), "fold_cols_launch",
                 S.device, S.data_ptr(), rows.data_ptr(),
                 int(S.dtype == torch.bfloat16), part.data_ptr(),

@@ -73,9 +73,13 @@ def gram_split(n: int, m: int, depth: int = _DEPTH) -> tuple[int, int, int]:
     return tiles, -(-m // chunk), chunk
 
 
-def _launch(S: torch.Tensor, v: Optional[torch.Tensor],
+def _launch(name: str, S: torch.Tensor, v: Optional[torch.Tensor],
             W_in: Optional[torch.Tensor], W: torch.Tensor,
             u: Optional[torch.Tensor]) -> None:
+    """One launch of the pass for the wrapper ``name``, counted under it
+    and under its route; on meta operands, the scratch and a would-be
+    launch (operations: the lower triangle's products, 2·n(n+1)/2·m, and
+    u's 2·n·m; bytes: S, v, W_in, W and u once each)."""
     n, m = S.shape
     tc = tensor_core_route(n, m, S.dtype,
                            S.storage_offset() * S.element_size())
@@ -86,6 +90,11 @@ def _launch(S: torch.Tensor, v: Optional[torch.Tensor],
     part_u = None if v is None else torch.empty(
         (Pn, -(-n // _TILE) * _TILE), dtype=torch.float32, device=S.device)
 
+    flops = n * (n + 1) * m + (0 if v is None else 2 * n * m)
+    if _build.would_launch(S.device, name, flops=flops,
+                           nbytes=_build.nbytes(S, v, W_in, W, u)):
+        return
+
     def ptr(t):
         return None if t is None else t.data_ptr()
 
@@ -95,14 +104,14 @@ def _launch(S: torch.Tensor, v: Optional[torch.Tensor],
                 ptr(part_u), n, m, tiles, Pn, chunk, int(tc),
                 _build.stream_of(S))
     ROUTES["wgmma" if tc else "cuda_cores"] += 1
+    LAUNCHES[name] += 1
 
 
 def gram_cuda(S: torch.Tensor) -> torch.Tensor:
     """W = S·Sᵀ (n, n) fp32. S (n, m) fp32|bf16."""
     n, _ = check_window(S)
     W = torch.empty((n, n), dtype=torch.float32, device=S.device)
-    _launch(S, None, None, W, None)
-    LAUNCHES["gram"] += 1
+    _launch("gram", S, None, None, W, None)
     return W
 
 
@@ -112,8 +121,7 @@ def gram_acc_cuda(S: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
     n, _ = check_window(S)
     _build.check("W", W, device=S.device, dtypes=(torch.float32,),
                  shape=(n, n))
-    _launch(S, None, W, W, None)
-    LAUNCHES["gram_acc"] += 1
+    _launch("gram_acc", S, None, W, W, None)
     return W
 
 
@@ -138,6 +146,5 @@ def gram_sv_cuda(S: torch.Tensor, v: torch.Tensor,
         _build.check("W", W, device=S.device, dtypes=(torch.float32,),
                      shape=(n, n))
     u = torch.empty((n,), dtype=torch.float32, device=S.device)
-    _launch(S, v, W_in, W, u)
-    LAUNCHES["gram_sv"] += 1
+    _launch("gram_sv", S, v, W_in, W, u)
     return W, u

@@ -29,6 +29,9 @@ def ngd_apply_cuda(S: torch.Tensor, w: torch.Tensor, v: torch.Tensor,
                  shape=(n,))
     _build.check("v", v, device=S.device, dtypes=WINDOW_DTYPES, shape=(m,))
     x = torch.empty((m,), dtype=torch.float32, device=S.device)
+    if _build.would_launch(S.device, "ngd_apply", flops=2 * n * m,
+                           nbytes=_build.nbytes(S, w, v, x)):
+        return x
     _build.call(_build.library("ngd_apply", _SIGNATURES), "ngd_apply_launch",
                 S.device, S.data_ptr(), int(S.dtype == torch.bfloat16),
                 w.data_ptr(), v.data_ptr(), int(v.dtype == torch.bfloat16),

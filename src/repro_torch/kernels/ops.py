@@ -5,7 +5,8 @@ from the kernels.
 ``mode``:
 
 * ``None`` — a CUDA tensor takes the hand-written kernel, a CPU tensor
-  the plain PyTorch version (``ref``);
+  the plain PyTorch version (``ref``), a meta tensor the kernel's wrapper
+  without its launch (the dry run: ``_build.would_launch``);
 * ``"ref"`` — the plain version on any device (the card's oracle);
 * ``"kernel"`` — the kernel; raises for CPU tensors.
 
@@ -79,11 +80,13 @@ def _use_kernel(mode: Optional[str], *tensors) -> bool:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     if mode == "ref" or _any_complex(*tensors):
         return False
-    on_cuda = tensors[0].is_cuda
-    if mode == "kernel" and not on_cuda:
+    # a meta operand (the dry run) takes the wrapper too: it allocates
+    # what the kernel's launch allocates and records a would-be launch
+    on_card = tensors[0].is_cuda or tensors[0].is_meta
+    if mode == "kernel" and not on_card:
         raise RuntimeError("mode='kernel' needs CUDA tensors; the kernels do "
                            "not run on the CPU")
-    return on_cuda
+    return on_card
 
 
 def _cols(V: torch.Tensor) -> tuple[torch.Tensor, bool]:

@@ -202,7 +202,7 @@ def check_window(S: torch.Tensor, name: str = "S") -> tuple[int, int]:
     if S.ndim != 2:
         raise ValueError(f"{name} must be a 2-D (n, m) window")
     _build.check(name, S, device=S.device, dtypes=WINDOW_DTYPES)
-    if S.device.type != "cuda":
+    if not _build.on_card(S):
         raise ValueError(f"{name} is on {S.device}; the kernel needs CUDA")
     n, m = S.shape
     if n < 1 or m < 1:
@@ -225,6 +225,9 @@ def sv_cross_cuda(S: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
     route = stream_route_of(S)
     part = torch.empty((Pn, n, k), dtype=torch.float32, device=S.device)
     U = torch.empty((n, k), dtype=torch.float32, device=S.device)
+    if _build.would_launch(S.device, "sv_cross", flops=2 * n * m * k,
+                           nbytes=_build.nbytes(S, V, U)):
+        return U
     _build.call(_lib(), "sv_cross_launch", S.device, S.data_ptr(),
                 int(S.dtype == torch.bfloat16), V.data_ptr(),
                 part.data_ptr(), U.data_ptr(), n, m, k, Pn, chunk,
@@ -243,6 +246,9 @@ def serve_apply_cuda(S: torch.Tensor, w: torch.Tensor, V: torch.Tensor,
     _build.check("V", V, device=S.device, dtypes=_F32)
     _build.check("w", w, device=S.device, dtypes=_F32, shape=(n, k))
     X = torch.empty((m, k), dtype=torch.float32, device=S.device)
+    if _build.would_launch(S.device, "serve_apply", flops=2 * n * m * k,
+                           nbytes=_build.nbytes(S, w, V, X)):
+        return X
     route = stream_route_of(S)
     _build.call(_lib(), "serve_apply_launch", S.device, S.data_ptr(),
                 int(S.dtype == torch.bfloat16), w.data_ptr(),
@@ -263,13 +269,16 @@ def _check_factor(L: torch.Tensor, n: int, device: torch.device) -> None:
 
 def trisolve_cuda(L: torch.Tensor, U: torch.Tensor) -> torch.Tensor:
     """w = L⁻ᵀ L⁻¹ U (n, k) fp32. L (n, n) lower fp32; U (n, k) fp32."""
-    if L.ndim != 2 or L.device.type != "cuda":
+    if L.ndim != 2 or not _build.on_card(L):
         raise ValueError("L must be a 2-D CUDA tensor")
     n = L.shape[0]
     _check_factor(L, n, L.device)
     k = _width(U, n, "U")
     _build.check("U", U, device=L.device, dtypes=_F32)
     w = torch.empty((n, k), dtype=torch.float32, device=L.device)
+    if _build.would_launch(L.device, "trisolve", flops=2 * n * n * k,
+                           nbytes=_build.nbytes(L, U, w)):
+        return w
     # U is passed as the single partial of the fixed-order reduction
     _build.call(_lib(), "trisolve_launch", L.device, L.data_ptr(),
                 U.data_ptr(), 1, n, k, trisolve_columns(n, k), w.data_ptr(),
@@ -291,6 +300,11 @@ def serve_solve_cuda(S: torch.Tensor, L: torch.Tensor, V: torch.Tensor,
     part = torch.empty((Pn, n, k), dtype=torch.float32, device=S.device)
     w = torch.empty((n, k), dtype=torch.float32, device=S.device)
     X = torch.empty((m, k), dtype=torch.float32, device=S.device)
+    # the window twice: the apply pass needs all of u = S·V first
+    if _build.would_launch(S.device, "serve_solve",
+                           flops=4 * n * m * k + 2 * n * n * k,
+                           nbytes=_build.nbytes(S, S, L, V, X)):
+        return X
     route = stream_route_of(S)
     _build.call(_lib(), "serve_solve_launch", S.device, S.data_ptr(),
                 int(S.dtype == torch.bfloat16), L.data_ptr(),

@@ -17,19 +17,61 @@ axis, in position order:
 
 ``torch.distributed`` is not used: NCCL takes one rank per GPU, so a
 multi-process mesh could not lay more than one position on a card.
+
+Inside ``counting_collectives()`` (the dry run) each collective over more
+than one position is counted under the reference's HLO op name, with its
+per-position bytes and ring wire bytes by the reference's rule
+(``launch/hlo_analysis.py``): an all-reduce moves 2·B·(k−1)/k, an
+all-gather B·(k−1)/k, a permute B. Outside it nothing is counted.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
 
-__all__ = ["DATA", "MODEL", "POD", "Mesh", "all_gather", "dp_axes",
-           "make_mesh", "make_production_mesh", "mesh_from_shape",
-           "ppermute", "psum"]
+__all__ = ["DATA", "MODEL", "POD", "Mesh", "all_gather",
+           "counting_collectives", "dp_axes", "make_mesh",
+           "make_production_mesh", "mesh_from_shape", "ppermute", "psum",
+           "record_collective"]
 
 POD, DATA, MODEL = "pod", "data", "model"
+COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+               "collective-permute")
+_counts: Optional[dict] = None
+
+
+@contextlib.contextmanager
+def counting_collectives():
+    """Count the collectives run inside the block; yields
+    {op: {"count", "bytes", "wire_bytes"}} for the ops of ``COLLECTIVES``,
+    filled as they run."""
+    global _counts
+    saved, _counts = _counts, {c: {"count": 0, "bytes": 0.0,
+                                   "wire_bytes": 0.0} for c in COLLECTIVES}
+    try:
+        yield _counts
+    finally:
+        _counts = saved
+
+
+def record_collective(kind: str, nbytes: float, k: int) -> None:
+    """Count one ``kind`` collective over ``k`` positions whose result is
+    ``nbytes`` a position, when counting is on and k > 1."""
+    if _counts is None or k < 2:
+        return
+    wire = {"all-reduce": 2 * nbytes * (k - 1) / k,
+            "collective-permute": nbytes}.get(kind, nbytes * (k - 1) / k)
+    rec = _counts[kind]
+    rec["count"] += 1
+    rec["bytes"] += nbytes
+    rec["wire_bytes"] += wire
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 class Mesh:
@@ -172,6 +214,7 @@ def psum(parts: Sequence[torch.Tensor]) -> torch.Tensor:
     first position's device. Every replica would compute this same sum;
     the caller moves it where each position needs it."""
     parts = list(parts)
+    record_collective("all-reduce", _nbytes(parts[0]), len(parts))
     acc = parts[0].clone()
     for p in parts[1:]:
         acc += p.to(acc.device)
@@ -183,6 +226,7 @@ def all_gather(parts: Sequence[torch.Tensor], *, dim: int = 0,
     """The tiled gather: the parts concatenated along ``dim`` in position
     order, on ``device`` (default: the first part's)."""
     parts = list(parts)
+    record_collective("all-gather", sum(map(_nbytes, parts)), len(parts))
     dev = parts[0].device if device is None else torch.device(device)
     if len(parts) == 1:
         return parts[0].to(dev)
@@ -195,6 +239,7 @@ def ppermute(parts: Sequence[torch.Tensor],
     """One hop of the ring i → i + 1: position i receives the part of
     position i − 1 (on its own device, when ``devices`` are given)."""
     parts = list(parts)
+    record_collective("collective-permute", _nbytes(parts[0]), len(parts))
     rolled = parts[-1:] + parts[:-1]
     if devices is None:
         return rolled

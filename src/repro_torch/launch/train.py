@@ -42,7 +42,7 @@ from repro_torch.core.operator import is_blocked
 from repro_torch.core.pytree import leaves, tree_map
 from repro_torch.data.pipeline import place
 from repro_torch.launch.mesh import (DATA, MODEL, Mesh, all_gather, dp_axes,
-                                     make_mesh)
+                                     make_mesh, record_collective)
 from repro_torch.optim.scores import (flatten_like, grad_and_value,
                                       per_sample_score_blocks,
                                       per_sample_scores)
@@ -147,6 +147,9 @@ def _dp_grads(grad_and_loss, api, mesh, replicas, home, batch):
         loss = _accumulate(loss, l, w, home)
         metrics = {k: _accumulate(metrics.get(k), v, w, home)
                    for k, v in m.items()}
+    # the pieces' sum is the DP all-reduce of the fp32 gradient
+    record_collective("all-reduce", sum(
+        a.numel() * a.element_size() for a in leaves(acc)), len(pieces))
     return tree_map(lambda a, dt: a.to(dt), acc, dtypes), loss, metrics
 
 

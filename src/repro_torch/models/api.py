@@ -5,8 +5,9 @@ serving front and the trainer talk to.
 family dispatch: the encoder-decoder and audio families through
 ``models.encdec`` (a batch carries ``frames``), every other family
 through ``models.lm`` (a VLM batch carries ``prefix_embeds``).
-``param_specs`` and ``make_input_specs`` (the reference's dry-run
-stand-ins) wait with the launch tooling.
+``param_specs`` and ``make_input_specs`` give the dry run's stand-ins:
+tensors on the meta device with the reference's shapes and dtypes,
+nothing allocated and nothing drawn.
 """
 from __future__ import annotations
 
@@ -18,13 +19,14 @@ import torch
 from repro_torch.models import encdec, lm
 from repro_torch.models.config import ModelConfig
 
-__all__ = ["ModelAPI", "get_api"]
+__all__ = ["ModelAPI", "get_api", "make_input_specs"]
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelAPI:
     cfg: ModelConfig
     init_params: Callable           # init_params(cpu_gen, device) -> params
+    param_specs: Callable           # param_specs() -> params on meta
     loss: Callable                  # loss(params, batch) -> (scalar, metrics)
     prefill: Callable               # prefill(params, batch) -> (logits, cache, idx)
     decode_step: Callable           # decode(params, cache, idx, tokens) -> (logits, cache)
@@ -63,8 +65,8 @@ def get_api(cfg: ModelConfig) -> ModelAPI:
             return lm.sample_logp(params["dec"], cfg,
                                   {**ex2, "enc_out": enc_out[0]})
 
-        return ModelAPI(cfg, init_params, loss, prefill, decode_step,
-                        init_cache, sample_logp)
+        return ModelAPI(cfg, init_params, lambda: encdec.param_specs(cfg),
+                        loss, prefill, decode_step, init_cache, sample_logp)
 
     def init_params(gen: torch.Generator, device=None):
         return lm.init_params(gen, cfg, device)
@@ -90,5 +92,52 @@ def get_api(cfg: ModelConfig) -> ModelAPI:
     def sample_logp(params, ex):
         return lm.sample_logp(params, cfg, ex)
 
-    return ModelAPI(cfg, init_params, loss, prefill, decode_step, init_cache,
-                    sample_logp)
+    return ModelAPI(cfg, init_params, lambda: lm.param_specs(cfg), loss,
+                    prefill, decode_step, init_cache, sample_logp)
+
+
+# ---------------------------------------------------------------------------
+# input specs (dry-run stand-ins)
+# ---------------------------------------------------------------------------
+
+def _spec(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device=lm.META)
+
+
+def make_input_specs(cfg: ModelConfig, *, kind: str, seq: int, batch: int):
+    """Meta tensors for one workload cell.
+
+    kind: "train" → loss batch; "prefill" → prompt batch;
+    "decode" → one-token step with a seq-length KV cache.
+
+    Whisper's decoder is architecturally capped at
+    ``cfg.max_target_positions`` learned positions — its cells run at that
+    cap (batch retained), as the reference's do.
+    """
+    i32, dt = torch.int32, cfg.param_dtype
+    if _is_encdec(cfg):
+        T = min(seq, cfg.max_target_positions)
+        if kind == "train":
+            return {"frames": _spec((batch, cfg.enc_seq, cfg.enc_d_model), dt),
+                    "inputs": _spec((batch, T - 1), i32),
+                    "labels": _spec((batch, T - 1), i32)}
+        if kind == "prefill":
+            return {"frames": _spec((batch, cfg.enc_seq, cfg.enc_d_model), dt),
+                    "tokens": _spec((batch, T - 1), i32)}
+        return {"tokens": _spec((batch, 1), i32),
+                "cache": lm.cache_specs(cfg, batch, T, enc_len=cfg.enc_seq),
+                "cache_index": _spec((), i32)}
+
+    extra = {}
+    if cfg.family == "vlm":
+        extra["prefix_embeds"] = _spec((batch, cfg.n_patches, cfg.d_model), dt)
+
+    if kind == "train":
+        return {**extra,
+                "inputs": _spec((batch, seq), i32),
+                "labels": _spec((batch, seq), i32)}
+    if kind == "prefill":
+        return {**extra, "tokens": _spec((batch, seq), i32)}
+    return {"tokens": _spec((batch, 1), i32),
+            "cache": lm.cache_specs(cfg, batch, seq),
+            "cache_index": _spec((), i32)}

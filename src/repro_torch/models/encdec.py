@@ -25,7 +25,7 @@ from repro_torch.models import lm
 from repro_torch.models.config import BlockSlot, ModelConfig
 
 __all__ = ["decode_step", "encode", "encoder_cfg", "init_params", "loss",
-           "prefill", "sinusoidal_pos"]
+           "param_specs", "prefill", "sinusoidal_pos"]
 
 F32 = torch.float32
 
@@ -64,6 +64,12 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, device=None):
         "enc_final_norm": lm._norm_p(ecfg, ecfg.d_model, device),
         "dec": lm.init_params(gen, cfg, device),
     }
+
+
+def param_specs(cfg: ModelConfig):
+    """The parameter tree on the meta device: the reference's leaf paths,
+    shapes and dtypes, with nothing allocated and nothing drawn."""
+    return init_params(None, cfg, lm.META)
 
 
 def encode(params, cfg: ModelConfig, frames, *, mode: str = "train"):

@@ -34,7 +34,9 @@ has no softcap and no ``attn_bf16`` rounding.
 
 Initialization draws from an explicit CPU ``torch.Generator`` and moves
 each draw to the device asked for, so one seed gives the same weights on
-every device. Shapes, scales and dtypes are the reference's, not its
+every device. The same code gives the shapes alone: on the meta device
+it draws nothing (``param_specs``, ``cache_specs``: the dry run's
+stand-ins, with the reference's leaf paths, shapes and dtypes). Shapes, scales and dtypes are the reference's, not its
 bits (``jax.random`` and torch draw different numbers). The reference
 draws a cross-attention slot's ``xq`` and ``xo`` from one key, so at
 d = H·hd they are one matrix; the port draws them apart.
@@ -51,10 +53,11 @@ from repro_torch.kernels.flash_attention import supported as flash_supported
 from repro_torch.models import layers as L
 from repro_torch.models.config import BlockSlot, ModelConfig
 
-__all__ = ["block_apply", "chunked_ce", "decode_step", "embed_tokens",
-           "forward", "init_blocks", "init_cache", "init_params", "init_slot",
-           "lm_loss", "mamba_prefill_cache", "prefill", "run_stack",
-           "run_stack_decode", "run_stack_prefill", "sample_logp", "unembed"]
+__all__ = ["block_apply", "cache_specs", "chunked_ce", "decode_step",
+           "embed_tokens", "forward", "init_blocks", "init_cache",
+           "init_params", "init_slot", "lm_loss", "mamba_prefill_cache",
+           "param_specs", "prefill", "run_stack", "run_stack_decode",
+           "run_stack_prefill", "sample_logp", "unembed"]
 
 F32 = torch.float32
 
@@ -65,7 +68,11 @@ F32 = torch.float32
 
 def _randn(gen: torch.Generator, shape, device) -> torch.Tensor:
     """F32 normal draws from the CPU generator ``gen``, moved to
-    ``device``: one seed gives the same weights on every device."""
+    ``device``: one seed gives the same weights on every device. On the
+    meta device nothing is drawn: the leaf's shape alone (``param_specs``;
+    ``gen`` is not read)."""
+    if device.type == "meta":
+        return torch.empty(shape, dtype=F32, device=device)
     return torch.randn(shape, generator=gen, dtype=F32).to(device)
 
 
@@ -197,6 +204,15 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, device=None):
                                             cfg.d_model), device) * 0.02
                                ).to(cfg.param_dtype)
     return params
+
+
+META = torch.device("meta")
+
+
+def param_specs(cfg: ModelConfig):
+    """The parameter tree on the meta device: the reference's leaf paths,
+    shapes and dtypes, with nothing allocated and nothing drawn."""
+    return init_params(None, cfg, META)
 
 
 # ---------------------------------------------------------------------------
@@ -430,8 +446,10 @@ def run_stack_decode(blocks, cache, x, cfg, *, cache_index, enc_out=None):
 def embed_tokens(params, cfg, tokens):
     x = params["embed"][tokens.long()].to(cfg.param_dtype)
     if cfg.scale_embed:
-        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.param_dtype,
-                             device=x.device)
+        # torch.full, not torch.tensor: the latter's detach_ is refused
+        # inside a grad transform on the meta device (the dry run)
+        x = x * torch.full((), cfg.d_model ** 0.5, dtype=cfg.param_dtype,
+                           device=x.device)
     return x
 
 
@@ -560,6 +578,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, enc_len=0,
         cache.append({key: torch.zeros(shapes[key], dtype=cfg.param_dtype,
                                        device=device) for key in keys})
     return cache
+
+
+def cache_specs(cfg: ModelConfig, batch: int, max_len: int, *, enc_len=0):
+    """``init_cache``'s tree on the meta device (nothing allocated)."""
+    return init_cache(cfg, batch, max_len, enc_len=enc_len, device=META)
 
 
 def _check_fits(cfg, T: int, P: int, max_len: int) -> None:

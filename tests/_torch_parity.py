@@ -2,6 +2,9 @@
 both packages with identical bits (bf16 rounded once, through ml_dtypes).
 JAX is imported on use: the GPU machine, which runs only the ``cuda``
 tests, has none."""
+import contextlib
+import os
+
 import numpy as np
 import torch
 
@@ -30,3 +33,24 @@ def rel(a, b) -> float:
     a = host(a).astype(np.complex128)
     b = host(b).astype(np.complex128)
     return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-12))
+
+
+@contextlib.contextmanager
+def reference_dryrun():
+    """``repro.launch.dryrun``, imported after JAX has its devices: the
+    import sets ``XLA_FLAGS`` (512 host devices) and the compilation-cache
+    variables for its own process, and they are restored on exit."""
+    import jax
+    jax.devices()
+    names = ("XLA_FLAGS", "JAX_COMPILATION_CACHE_DIR",
+             "JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS")
+    saved = {k: os.environ.get(k) for k in names}
+    try:
+        from repro.launch import dryrun
+        yield dryrun
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v

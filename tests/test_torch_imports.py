@@ -1,6 +1,7 @@
 """The torch port stands alone: importing every module of ``repro_torch``
-(and ``chip_smoke.py`` as a module, without running it) loads neither
-``jax`` nor anything of the JAX package ``repro``."""
+(and ``chip_smoke.py`` and every ``examples_torch/*.py`` as modules,
+without running them) loads neither ``jax`` nor anything of the JAX
+package ``repro``."""
 import os
 import subprocess
 import sys
@@ -11,16 +12,19 @@ ROOT = os.path.join(os.path.dirname(__file__), "..")
 
 def test_port_imports_no_jax_and_no_repro():
     body = textwrap.dedent("""
-        import importlib, importlib.util, pkgutil, sys
+        import glob, importlib, importlib.util, pkgutil, sys
         import repro_torch
         names = ["repro_torch"] + [
             m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                    "repro_torch.")]
         for name in names:
             importlib.import_module(name)
-        spec = importlib.util.spec_from_file_location("chip_smoke",
-                                                      "chip_smoke.py")
-        spec.loader.exec_module(importlib.util.module_from_spec(spec))
+        scripts = ["chip_smoke.py"] + sorted(glob.glob("examples_torch/*.py"))
+        assert len(scripts) == 6, scripts
+        for path in scripts:
+            name = path.replace("/", "_")[:-3]
+            spec = importlib.util.spec_from_file_location(name, path)
+            spec.loader.exec_module(importlib.util.module_from_spec(spec))
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "repro"))
         assert not bad, bad
@@ -48,7 +52,9 @@ def test_port_imports_no_jax_and_no_repro():
                      "dist.cholupdate", "dist.server", "optim.hybrid",
                      "optim.compress", "fleet", "fleet.wire",
                      "fleet.gossip", "fleet.ring", "fleet.dispatcher",
-                     "fleet.worker", "fleet.__main__"):
+                     "fleet.worker", "fleet.__main__", "configs.paper",
+                     "launch.shardings", "launch.hlo_analysis",
+                     "launch.dryrun"):
             assert "repro_torch." + need in names, need
         print(len(names))
     """)

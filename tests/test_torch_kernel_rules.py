@@ -69,9 +69,18 @@ def test_supported_edge_at_bh_65536(B, H, want):
                device="meta")
     assert supported(q, k) is want
     assert (B * H <= 65535) is want
-    # the wrapper refuses a tensor off the card first, whatever its shape
+    # the wrapper refuses a CPU tensor first, whatever its shape
     with pytest.raises(ValueError, match="CUDA"):
-        flash_attention_cuda(q, k, k)
+        flash_attention_cuda(torch.empty_like(q, device="cpu"),
+                             torch.empty_like(k, device="cpu"),
+                             torch.empty_like(k, device="cpu"))
+    # a meta operand takes the wrapper's meta route (the dry run): its
+    # output on meta where the rule holds, the rule's reason where not
+    if want:
+        assert flash_attention_cuda(q, k, k).is_meta
+    else:
+        with pytest.raises(ValueError, match="unsupported shape"):
+            flash_attention_cuda(q, k, k)
 
 
 def test_kernel_mode_still_raises_off_the_card():

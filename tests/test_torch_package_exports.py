@@ -2,8 +2,9 @@
 
 Each port subpackage's ``__all__`` is held to the reference's: equal to it
 less the names that are TPU-only by design (``*_pallas``,
-``MAX_SINGLE_BLOCK_N``, ``on_tpu``, ``pad_to``, the ``jit_*`` wrappers)
-and those of the launch tooling still to come (ROADMAP A9), plus the
+``MAX_SINGLE_BLOCK_N``, ``on_tpu``, ``pad_to``, the ``jit_*`` wrappers,
+and the dry run's XLA steps ``build_lowered``, ``build_solver_lowered``,
+``compile_and_analyze`` and its ``NamedSharding`` import), plus the
 port's own additions, listed here by name. A reference package without an
 ``__all__`` is held by its public names. Every exported name resolves.
 ``launch`` has no ``__init__`` in the reference, so its modules are held
@@ -20,12 +21,11 @@ SUBPACKAGES = ("checkpoint", "configs", "core", "curvature", "data", "dist",
                "fleet", "kernels", "models", "obs", "optim", "serve",
                "tenants")
 LAUNCH = ("launch.mesh", "launch.supervisor", "launch.train",
-          "launch.trainer")
+          "launch.trainer", "launch.shardings", "launch.hlo_analysis",
+          "launch.dryrun")
 
-# the launch tooling's names (configs/paper.py, the spec functions)
-A9 = {"TABLE1_SHAPES", "TABLE1_TIMES_MS", "DAMPING", "param_specs",
-      "cache_specs", "make_input_specs", "param_shardings",
-      "input_shardings", "cache_shardings"}
+# names of the launch tooling still to come: none since it was ported
+A9 = set()
 
 # names the port exports beyond the reference's
 PORT_ADDS = {
@@ -36,15 +36,19 @@ PORT_ADDS = {
     "models": {"ModelAPI", "encdec", "get_api"},
     "optim": {"global_norm", "params_from_arrays", "params_to_arrays"},
     "serve": {"serve_state_arrays", "serve_state_from_arrays"},
-    "launch.mesh": {"Mesh", "all_gather", "mesh_from_shape", "ppermute",
-                    "psum"},
+    "launch.mesh": {"Mesh", "all_gather", "counting_collectives",
+                    "mesh_from_shape", "ppermute", "psum",
+                    "record_collective"},
+    "launch.dryrun": {"analyze_cell", "build_cell", "build_solver_cell"},
     "launch.train": {"batch_to", "make_prefill", "make_serve_step"},
 }
 
 
 def _tpu_only(name: str) -> bool:
     return (name.endswith("_pallas") or name.startswith("jit_")
-            or name in ("MAX_SINGLE_BLOCK_N", "on_tpu", "pad_to"))
+            or name in ("MAX_SINGLE_BLOCK_N", "on_tpu", "pad_to",
+                        "NamedSharding", "build_lowered",
+                        "build_solver_lowered", "compile_and_analyze"))
 
 
 def _exports(mod) -> set:
